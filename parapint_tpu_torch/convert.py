@@ -1,0 +1,60 @@
+"""Carry iterates and model data across from the JAX package as numpy.
+
+The port never imports JAX; these functions take plain numpy arrays (or any
+array numpy can read) laid out as the JAX package's pytrees, so that the
+two packages can start from the same iterate and the same model data.
+"""
+
+import numpy as np
+import torch
+
+from parapint_tpu_torch.interfaces.base import STATE_FIELDS, IPState
+
+F64 = torch.float64
+
+
+def _field(tree, name):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def ipstate_from_numpy(tree, device) -> IPState:
+    """IPState of float64 tensors on ``device`` from a JAX ``IPState`` (or a
+    dict with the same field names) whose leaves are arrays or dicts of
+    arrays."""
+
+    def leaf(v):
+        if isinstance(v, dict):
+            return {k: leaf(a) for k, a in v.items()}
+        return torch.as_tensor(np.array(v, dtype=np.float64), dtype=F64, device=device)
+
+    return IPState(**{f: leaf(_field(tree, f)) for f in STATE_FIELDS})
+
+
+def ipstate_to_numpy(state: IPState) -> dict:
+    """{field: array or {key: array}} in numpy, the JAX IPState's layout."""
+
+    def leaf(v):
+        if isinstance(v, dict):
+            return {k: leaf(a) for k, a in v.items()}
+        return v.detach().cpu().numpy()
+
+    return {f: leaf(getattr(state, f)) for f in STATE_FIELDS}
+
+
+SPEC_ARRAYS = ("x0", "xl", "xu", "gl", "gu", "eq_mask", "ineq_mask", "x_mask")
+
+
+def spec_arrays_from_numpy(spec, device) -> dict:
+    """Keyword arguments ``params``, ``x0``, the bounds and the masks of a
+    JAX ``DynamicModelSpec`` (or any object with those attributes) as
+    tensors on ``device``, ready for the port's ``DynamicModelSpec``."""
+    out = {
+        "params": {
+            k: torch.as_tensor(np.array(v), device=device) for k, v in spec.params.items()
+        }
+    }
+    for name in SPEC_ARRAYS:
+        a = np.array(getattr(spec, name))
+        dtype = torch.bool if a.dtype == np.bool_ else F64
+        out[name] = torch.as_tensor(a, dtype=dtype, device=device)
+    return out

@@ -1,0 +1,148 @@
+"""Masked, batched AD over a uniform family of NLP blocks (the subset of
+``parapint_tpu.interfaces.blocked`` that the banded interface runs).
+
+The user provides block functions ``f(x, p)``, ``c_eq(x, p)``,
+``c_ineq(x, p)`` written in torch and shared across blocks, plus per-block
+parameters ``p`` (a dict of tensors with leading dimension N).  Every
+evaluation is ``torch.func.vmap``-ed over the block axis.  Ragged blocks are
+handled by row masks (masked rows evaluate to 0, so their Jacobian rows
+vanish) and variable masks (masked variables read as 0).
+
+The banded KKT assembly never materializes Hessians or Jacobians: it uses
+the probe closures ``hvp_lag``, ``jvp_eq``, ``vjp_eq``, ``jvp_ineq`` and
+``vjp_ineq``, each batched over blocks AND over a shared set of probe
+vectors.
+"""
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch.func import grad, jvp, vjp, vmap
+
+
+def _probe(f, nstate: int):
+    """Batch ``f(*state, v)`` over blocks (axis 0 of the state args) and over
+    probe vectors (axis 0 of v)."""
+    inner = vmap(f, in_dims=(None,) * nstate + (0,))
+    return vmap(inner, in_dims=(0,) * nstate + (None,))
+
+
+class BatchedNLPFunctions:
+    """Masked, vmapped AD over a uniform family of blocks."""
+
+    def __init__(
+        self,
+        objective: Callable,  # (x, p) -> scalar
+        eq_constraints: Optional[Callable],  # (x, p) -> (me,)
+        ineq_constraints: Optional[Callable],  # (x, p) -> (mi,)
+        n_x: int,
+        n_eq: int,
+        n_ineq: int,
+    ):
+        self.n_x, self.n_eq, self.n_ineq = n_x, n_eq, n_ineq
+
+        def _f(x, p, xm):
+            return objective(torch.where(xm, x, 0.0), p)
+
+        def _ceq(x, p, xm, em):
+            if n_eq == 0:
+                return x.new_zeros(0)
+            return em * eq_constraints(torch.where(xm, x, 0.0), p)
+
+        def _cineq(x, p, xm, im):
+            if n_ineq == 0:
+                return x.new_zeros(0)
+            return im * ineq_constraints(torch.where(xm, x, 0.0), p)
+
+        def _lag(x, y_eq, y_ineq, obj_factor, p, xm, em, im):
+            val = obj_factor * _f(x, p, xm)
+            if n_eq:
+                val = val + (y_eq * _ceq(x, p, xm, em)).sum()
+            if n_ineq:
+                val = val + (y_ineq * _cineq(x, p, xm, im)).sum()
+            return val
+
+        self._f, self._ceq, self._cineq, self._lag = _f, _ceq, _cineq, _lag
+
+        self.f = vmap(_f)
+        self.grad_f = vmap(grad(_f))
+        self.c_eq = vmap(_ceq)
+        self.c_ineq = vmap(_cineq)
+
+        # model functions may mix dtypes internally (f64 constants under a
+        # float32 KKT); every probed closure's output is pinned to x's dtype
+        # so primal and tangent dtypes line up
+        def _hvp(x, y_eq, y_ineq, obj_factor, p, xm, em, im, v):
+            def g(xx):
+                lag = lambda xq: _lag(xq, y_eq, y_ineq, obj_factor, p, xm, em, im).to(xq.dtype)
+                return grad(lag)(xx).to(xx.dtype)
+
+            return jvp(g, (x,), (v,))[1]
+
+        def _jvp_eq(x, p, xm, em, v):
+            if not n_eq:
+                return x.new_zeros(0)
+            return jvp(lambda xx: _ceq(xx, p, xm, em).to(x.dtype), (x,), (v,))[1]
+
+        def _vjp_eq(x, p, xm, em, w):
+            if not n_eq:
+                return x.new_zeros(n_x)
+            return vjp(lambda xx: _ceq(xx, p, xm, em).to(x.dtype), x)[1](w)[0]
+
+        def _jvp_ineq(x, p, xm, im, v):
+            if not n_ineq:
+                return x.new_zeros(0)
+            return jvp(lambda xx: _cineq(xx, p, xm, im).to(x.dtype), (x,), (v,))[1]
+
+        def _vjp_ineq(x, p, xm, im, w):
+            if not n_ineq:
+                return x.new_zeros(n_x)
+            return vjp(lambda xx: _cineq(xx, p, xm, im).to(x.dtype), x)[1](w)[0]
+
+        self.hvp_lag = _probe(_hvp, 8)
+        self.jvp_eq = _probe(_jvp_eq, 4)
+        self.vjp_eq = _probe(_vjp_eq, 4)
+        self.jvp_ineq = _probe(_jvp_ineq, 4)
+        self.vjp_ineq = _probe(_vjp_ineq, 4)
+
+        def _jtprod(x, y_eq, y_ineq, p, xm, em, im):
+            """J_eq^T y_eq + J_ineq^T y_ineq via ONE reverse sweep."""
+
+            def val(xx):
+                out = xx.new_zeros(())
+                if n_eq:
+                    out = out + (y_eq * _ceq(xx, p, xm, em)).sum()
+                if n_ineq:
+                    out = out + (y_ineq * _cineq(xx, p, xm, im)).sum()
+                return out
+
+            return grad(val)(x)
+
+        self.jtprod = vmap(_jtprod)
+
+    def total_objective(self, xs, ps, xms):
+        return self.f(xs, ps, xms).sum()
+
+
+def sub_kkt_layout(n: int, me: int, mi: int, n_link: int):
+    """Offsets of the per-block variable families [x, s, y_eq, y_ineq, lam]
+    and the block size nk."""
+    off_x = 0
+    off_s = n
+    off_yeq = n + mi
+    off_yineq = n + mi + me
+    off_lam = n + 2 * mi + me
+    nk = off_lam + n_link
+    return off_x, off_s, off_yeq, off_yineq, off_lam, nk
+
+
+def selector_rows(sel_idx: np.ndarray, mask: np.ndarray, n: int) -> np.ndarray:
+    """(N, L, n) 0/1 selector matrices: row j of block b has mask[b, j] at
+    column sel_idx[j] (the reference's link COO matrices as dense batched
+    selectors)."""
+    N, L = mask.shape
+    rows = np.zeros((N, L, n))
+    for j in range(L):
+        rows[:, j, sel_idx[j]] = mask[:, j]
+    return rows

@@ -1,0 +1,563 @@
+"""Block-structured Schur-complement interior-point interface, banded mode
+(counterpart of ``parapint_tpu.interfaces.structured`` with
+``block_form="banded"``).
+
+N uniform NLP blocks, a vector c of coupling variables, and per-block
+linear linking rows ``x_b[sel_j] - c[row_idx[b, j]] = 0`` whose dual rows
+live inside the block's KKT block and whose coupling columns form the
+block-local border.  Per-block KKT layout: [x(n), s(mi), y_eq(me),
+y_ineq(mi), lambda(n_link)] (:func:`blocked.sub_kkt_layout`).
+
+Banded mode assembles each per-block KKT as a symmetric band store under a
+host-computed permutation (``banded_symbolic.py``) by probing: 2p+1
+HVP/JVP/VJP sweeps per block, no Hessian or Jacobian is materialized.  The
+link selectors and the permuted border strips are built once as tensors on
+the interface's device.  Working vectors (rhs, residuals, convergence) are
+float64; the KKT matrix data is in ``kkt_dtype`` when one is given.
+"""
+
+import numpy as np
+import torch
+
+from parapint_tpu_torch.interfaces import base
+from parapint_tpu_torch.interfaces.banded_symbolic import banded_plan, block_patterns
+from parapint_tpu_torch.interfaces.base import (
+    STATE_FIELDS,
+    Bounds,
+    IPState,
+    map_leaf,
+)
+from parapint_tpu_torch.interfaces.blocked import selector_rows, sub_kkt_layout
+from parapint_tpu_torch.linalg.banded_schur import BandedLocalBlockKKT
+from parapint_tpu_torch.linalg.schur import BlockRhs
+
+F64 = torch.float64
+
+
+class StructuredSCInterface(base.BaseInteriorPointInterface):
+    """Shared implementation; see module docstring.
+
+    Subclass responsibilities (before calling ``_finalize``):
+      self.device, self.N, self.n, self.me, self.mi, self.ns, self.n_link,
+      self.ncv, self.fns (BatchedNLPFunctions), self.params (dict of tensors)
+      self.eq_mask / ineq_mask / x_mask  (bool tensors, (N, dim))
+      self.link_sel (n_link,) numpy int, selected x index of each link row
+      self.link_mask (N, n_link) float64, self.row_idx (N, n_link) int64
+      self._xl/_xu (N, n), self._gl/_gu (N, mi) raw bounds (numpy)
+      self.x0 (N, n) float64 initial primals
+    """
+
+    def _finalize(self, kkt_dtype=None, block_form: str = "banded"):
+        if block_form == "dense":
+            raise NotImplementedError(
+                "block_form='dense' is not ported yet (ROADMAP A9); use 'banded'"
+            )
+        if block_form != "banded":
+            raise ValueError(f"unknown block_form {block_form!r}")
+        if not self._chain_links:
+            raise NotImplementedError("only the time-chain link topology is ported")
+        self.block_form = block_form
+        self.sc_assembly = "chain"
+        # kkt_dtype: the probed KKT matrix data is evaluated in this dtype;
+        # everything convergence-critical stays float64
+        self.kkt_dtype = kkt_dtype
+        if kkt_dtype is not None:
+            self._params_kkt = {
+                k: v.to(kkt_dtype) if v.is_floating_point() else v
+                for k, v in self.params.items()
+            }
+        else:
+            self._params_kkt = self.params
+        (
+            self.off_x,
+            self.off_s,
+            self.off_yeq,
+            self.off_yineq,
+            self.off_lam,
+            self.nk,
+        ) = sub_kkt_layout(self.n, self.me, self.mi, self.n_link)
+        self.obj_factor = 1.0
+        self._current_state = None
+
+        # dense (N, n_link, n) link selectors, built once on the device
+        self.link_rows = torch.as_tensor(
+            selector_rows(self.link_sel, self.link_mask.cpu().numpy(), self.n),
+            dtype=F64,
+            device=self.device,
+        )
+
+        self._banded_setup()
+
+        self.n_eq_real = int(self.eq_mask.sum()) + int(self.link_mask.sum())
+        self.n_ineq_real = int(self.ineq_mask.sum())
+        self._bounds_relaxation_factor = 0.0
+        self._set_bounds()
+
+    # -- banded block form ---------------------------------------------------
+
+    def _banded_setup(self):
+        """One-time symbolic analysis (ordering, bandwidth, probes)."""
+        params_samples = [
+            {k: v[i] for k, v in self.params.items()} for i in sorted({0, self.N - 1})
+        ]
+        Hpat, Jeq_pat, Jineq_pat = block_patterns(
+            self.fns, params_samples, self.n, self.me, self.mi, self.device
+        )
+        link_pat = (self.link_rows.abs().amax(dim=0) > 0).cpu().numpy()
+        plan = banded_plan(
+            Hpat, Jeq_pat, Jineq_pat, link_pat, self.n, self.me, self.mi, self.n_link
+        )
+        self.banded_plan = plan
+        dev = self.device
+        as_i = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+        kd = self.kkt_dtype or F64
+        as_k = lambda a: torch.as_tensor(a, dtype=kd, device=dev)
+        self._b_perm = as_i(plan.perm)
+        self._b_iperm = as_i(plan.iperm)
+        self._b_Vx = as_k(plan.Vx)
+        self._b_Vs = as_k(plan.Vs)
+        self._b_Vyeq = as_k(plan.Vyeq)
+        self._b_Vyineq = as_k(plan.Vyineq)
+        self._b_Vlam = as_k(plan.Vlam)
+        self._b_col_idx = as_i(plan.col_idx)
+        self._b_row_idx = as_i(plan.row_idx)
+        self._b_valid = as_k(plan.valid)
+        self._link_rows_kkt = self.link_rows.to(kd)
+        # border strips with permuted columns: local border row j holds
+        # -link_mask[b, j] at permuted column iperm[off_lam + j]
+        N, L, nk = self.N, self.n_link, self.nk
+        pos = as_i(plan.iperm[self.off_lam : self.off_lam + L])
+        border = torch.zeros((N, L, nk), dtype=kd, device=dev)
+        border[:, torch.arange(L, device=dev), pos] = -self.link_mask.to(kd)
+        self._border_loc_perm = border
+        # regularization diagonal masks in permuted space (N, nk): w_reg
+        # ADDS to real x-variable diagonals, c_reg SETS real constraint
+        # diagonals (zero in the probed baseline)
+        w_mask = torch.zeros((N, nk), dtype=kd, device=dev)
+        w_mask[:, : self.n] = self.x_mask.to(kd)
+        c_mask = torch.zeros((N, nk), dtype=kd, device=dev)
+        c_mask[:, self.off_yeq : self.off_yeq + self.me] = self.eq_mask.to(kd)
+        c_mask[:, self.off_yineq : self.off_yineq + self.mi] = self.ineq_mask.to(kd)
+        c_mask[:, self.off_lam :] = self.link_mask.to(kd)
+        self._b_w_mask = w_mask[:, self._b_perm]
+        self._b_c_mask = c_mask[:, self._b_perm]
+
+    def _banded_bands0(self, state, sigma_x, sigma_s):
+        """Per-iteration banded KKT assembly by probing: (N, p+1, nk) lower
+        bands of the permuted per-block KKTs at w_reg = c_reg = 0."""
+        fns = self.fns
+        kd = self.kkt_dtype
+        cast = (lambda a: a) if kd is None else (lambda a: a.to(kd))
+        params = self._params_kkt
+        x = cast(state.primals["blocks"])
+        yeq = cast(state.duals_eq["own"])
+        yineq = cast(state.duals_ineq)
+        dt = x.dtype
+        xm = self.x_mask
+        em = self.eq_mask.to(dt)
+        im = self.ineq_mask.to(dt)
+        obf = torch.full((self.N,), self.obj_factor, dtype=dt, device=x.device)
+        Vx, Vs, Vyeq = self._b_Vx, self._b_Vs, self._b_Vyeq
+        Vyineq, Vlam = self._b_Vyineq, self._b_Vlam
+        lrows = self._link_rows_kkt
+        sx = cast(sigma_x)
+        ss = cast(sigma_s)
+
+        hv = fns.hvp_lag(x, yeq, yineq, obf, params, xm, em, im, Vx)
+        jeq_v = fns.jvp_eq(x, params, xm, em, Vx)
+        jineq_v = fns.jvp_ineq(x, params, xm, im, Vx)
+        jTeq_v = fns.vjp_eq(x, params, xm, em, Vyeq)
+        jTineq_v = fns.vjp_ineq(x, params, xm, im, Vyineq)
+
+        out_x = (
+            hv
+            + torch.where(xm, sx, 1.0)[:, None, :] * Vx[None]
+            + jTeq_v
+            + jTineq_v
+            + torch.einsum("bln,ql->bqn", lrows, Vlam)
+        )
+        out_s = (
+            torch.where(self.ineq_mask, ss, 1.0)[:, None, :] * Vs[None]
+            - im[:, None, :] * Vyineq[None]
+        )
+        out_yeq = jeq_v + torch.where(self.eq_mask, 0.0, -1.0).to(dt)[:, None, :] * Vyeq[None]
+        out_yineq = (
+            jineq_v
+            - im[:, None, :] * Vs[None]
+            + torch.where(self.ineq_mask, 0.0, -1.0).to(dt)[:, None, :] * Vyineq[None]
+        )
+        out_lam = (
+            torch.einsum("bln,qn->bql", lrows, Vx)
+            + torch.where(self.link_mask > 0, 0.0, -1.0).to(dt)[:, None, :] * Vlam[None]
+        )
+        Y = torch.cat([out_x, out_s, out_yeq, out_yineq, out_lam], dim=2)
+        # permute ROWS (K v is a row-space vector), then extract bands:
+        # bands0[b, e, i] = Kp[i+e, i] = Yp[b, i % q, i + e]
+        Yp = Y[:, :, self._b_perm]
+        return Yp[:, self._b_col_idx, self._b_row_idx] * self._b_valid
+
+    # -- accessors -------------------------------------------------------------
+
+    @property
+    def n_duals_eq(self) -> int:
+        return self.n_eq_real
+
+    @property
+    def n_duals_ineq(self) -> int:
+        return self.n_ineq_real
+
+    @property
+    def expected_neg_eig(self) -> int:
+        """All constraint-family rows, real or padded (padded rows carry a
+        decoupled -1 diagonal, one negative eigenvalue each)."""
+        return self.N * (self.me + self.mi + self.n_link)
+
+    def get_state(self) -> IPState:
+        return self._current_state
+
+    def get_primals(self):
+        return self._current_state.primals
+
+    def evaluate_objective(self):
+        x = self._current_state.primals["blocks"]
+        return self.fns.total_objective(x, self.params, self.x_mask)
+
+    # -- bounds ----------------------------------------------------------------
+
+    def get_bounds_relaxation_factor(self) -> float:
+        return self._bounds_relaxation_factor
+
+    def set_bounds_relaxation_factor(self, val: float) -> None:
+        self._bounds_relaxation_factor = val
+        self._set_bounds()
+
+    def _set_bounds(self) -> None:
+        f = self._bounds_relaxation_factor
+        dev = self.device
+        t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+        self.bounds = Bounds(
+            xl={
+                "blocks": base.relax_bounds_lower(t(self._xl), f),
+                "coupling": torch.full((self.ncv,), -torch.inf, dtype=F64, device=dev),
+            },
+            xu={
+                "blocks": base.relax_bounds_upper(t(self._xu), f),
+                "coupling": torch.full((self.ncv,), torch.inf, dtype=F64, device=dev),
+            },
+            gl=base.relax_bounds_lower(t(self._gl), f),
+            gu=base.relax_bounds_upper(t(self._gu), f),
+        )
+
+    # -- initial state ---------------------------------------------------------
+
+    def init_state(self) -> IPState:
+        b = self.bounds
+        base.validate_bounds(b.xl["blocks"], b.xu["blocks"])
+        base.validate_bounds(b.gl, b.gu)
+        warm = getattr(self, "_warm_start", {}) or {}
+        N, n, me, mi, dev = self.N, self.n, self.me, self.mi, self.device
+        zeros = lambda *shape: torch.zeros(shape, dtype=F64, device=dev)
+        ones = lambda *shape: torch.ones(shape, dtype=F64, device=dev)
+        y_eq0, y_ineq0 = warm.get("y_eq0"), warm.get("y_ineq0")
+        zl0, zu0 = warm.get("zl0"), warm.get("zu0")
+        lam0, c0 = warm.get("lam0"), warm.get("c0")
+        xl, xu = b.xl["blocks"], b.xu["blocks"]
+        x = base.process_init(self.x0, xl, xu)
+        c = zeros(self.ncv) if c0 is None else c0
+        s0 = self.fns.c_ineq(self.x0, self.params, self.x_mask, self.ineq_mask)
+        s = base.process_init(s0, b.gl, b.gu)
+        zl_w = ones(N, n) if zl0 is None else zl0
+        zu_w = ones(N, n) if zu0 is None else zu0
+        zl = base.process_init_duals_lb(torch.where(torch.isneginf(xl), 0.0, zl_w), xl)
+        zu = base.process_init_duals_ub(torch.where(torch.isposinf(xu), 0.0, zu_w), xu)
+        # slack duals split from warm ineq duals by sign
+        vl_w = zeros(N, mi) if y_ineq0 is None else torch.clamp(y_ineq0, min=0.0)
+        vu_w = zeros(N, mi) if y_ineq0 is None else torch.clamp(-y_ineq0, min=0.0)
+        vl = base.process_init_duals_lb(vl_w, b.gl)
+        vu = base.process_init_duals_ub(vu_w, b.gu)
+        return IPState(
+            primals={"blocks": x, "coupling": c},
+            slacks=s,
+            duals_eq={
+                "own": zeros(N, me) if y_eq0 is None else y_eq0,
+                "link": zeros(N, self.n_link) if lam0 is None else lam0 * self.link_mask,
+            },
+            duals_ineq=zeros(N, mi) if y_ineq0 is None else y_ineq0,
+            duals_primals_lb={"blocks": zl, "coupling": zeros(self.ncv)},
+            duals_primals_ub={"blocks": zu, "coupling": zeros(self.ncv)},
+            duals_slacks_lb=vl,
+            duals_slacks_ub=vu,
+        )
+
+    # -- link helpers (time-chain topology) ------------------------------------
+
+    @property
+    def _chain_links(self) -> bool:
+        ns = getattr(self, "ns", 0)
+        return ns > 0 and self.n_link == 2 * ns and self.ncv == (self.N - 1) * ns
+
+    def _gather_coupling(self, c):
+        """c values seen by each block's link rows: (N, n_link); backward
+        rows of block b read group b-1, forward rows group b."""
+        z = c.new_zeros((1, self.ns))
+        ext = torch.cat([z, c.reshape(-1, self.ns), z], dim=0)
+        return torch.cat([ext[: self.N], ext[1 : self.N + 1]], dim=1)
+
+    def _link_duals(self, duals_eq):
+        return duals_eq["link"] * self.link_mask
+
+    def _link_resid(self, x, c):
+        """(N, n_link) masked link residuals sel(x) - c."""
+        lx = (self.link_rows.to(x.dtype) @ x[:, :, None])[..., 0]
+        return (lx - self._gather_coupling(c) * self.link_mask) * self.link_mask
+
+    def _scatter_link_duals_to_coupling(self, duals_eq):
+        """group g collects the forward duals of block g and the backward
+        duals of block g+1."""
+        lam = self._link_duals(duals_eq)
+        ns = self.ns
+        return (lam[: self.N - 1, ns:] + lam[1:, :ns]).reshape(self.ncv)
+
+    def _grad_lag_primals(self, state, grad_f, jtlam):
+        lam = self._link_duals(state.duals_eq)
+        return (
+            self.obj_factor * grad_f
+            + jtlam
+            + (lam[:, None, :] @ self.link_rows.to(lam.dtype))[:, 0, :]
+        )
+
+    def _jtprod(self, state):
+        """Exact J^T-dual product via one VJP sweep (no Jacobians)."""
+        return self.fns.jtprod(
+            state.primals["blocks"],
+            state.duals_eq["own"],
+            state.duals_ineq,
+            self.params,
+            self.x_mask,
+            self.eq_mask,
+            self.ineq_mask,
+        )
+
+    # -- shared AD evaluation ----------------------------------------------------
+
+    def eval_ad(self, state):
+        """One AD sweep per iteration: every derivative quantity that both
+        the convergence check and the KKT assembly need."""
+        fns = self.fns
+        args = (state.primals["blocks"], self.params, self.x_mask)
+        return dict(
+            obj=fns.total_objective(*args),
+            grad_f=fns.grad_f(*args),
+            jtlam=self._jtprod(state),
+            c_eq=fns.c_eq(*args, self.eq_mask),
+            c_ineq=fns.c_ineq(*args, self.ineq_mask),
+        )
+
+    def convergence_from_ad(self, state, ad, barrier, error_scaling):
+        return self._convergence_core(
+            state, self.bounds, ad["obj"], ad["grad_f"], ad["jtlam"],
+            ad["c_eq"], ad["c_ineq"], barrier, error_scaling,
+        )
+
+    def kkt_from_ad(self, state, ad, barrier):
+        return self._kkt_core_banded(
+            state, self.bounds, ad["grad_f"], ad["jtlam"], ad["c_eq"], ad["c_ineq"], barrier
+        )
+
+    # -- convergence -------------------------------------------------------------
+
+    def _convergence_core(
+        self, state, bounds, obj, grad_f, jtlam, c_eq, c_ineq, barrier, error_scaling
+    ):
+        x = state.primals["blocks"]
+        c = state.primals["coupling"]
+        ineq_resid = c_ineq - state.slacks
+        link_resid = self._link_resid(x, c)
+        glp_blocks = (
+            self._grad_lag_primals(state, grad_f, jtlam)
+            - state.duals_primals_lb["blocks"]
+            + state.duals_primals_ub["blocks"]
+        )
+        glp_coupling = -self._scatter_link_duals_to_coupling(state.duals_eq)
+        grad_lag_slacks = -state.duals_ineq - state.duals_slacks_lb + state.duals_slacks_ub
+        flat = lambda d: torch.cat([d["blocks"].reshape(-1), d["coupling"]])
+        return base.convergence_metrics(
+            objective=obj,
+            grad_lag_primals=torch.cat([glp_blocks.reshape(-1), glp_coupling]),
+            grad_lag_slacks=grad_lag_slacks.reshape(-1),
+            eq_resid=torch.cat([c_eq.reshape(-1), link_resid.reshape(-1)]),
+            ineq_resid=ineq_resid.reshape(-1),
+            primals=torch.cat([x.reshape(-1), c]),
+            primals_lb=flat(bounds.xl),
+            primals_ub=flat(bounds.xu),
+            duals_primals_lb=flat(state.duals_primals_lb),
+            duals_primals_ub=flat(state.duals_primals_ub),
+            slacks=state.slacks.reshape(-1),
+            ineq_lb=bounds.gl.reshape(-1),
+            ineq_ub=bounds.gu.reshape(-1),
+            duals_slacks_lb=state.duals_slacks_lb.reshape(-1),
+            duals_slacks_ub=state.duals_slacks_ub.reshape(-1),
+            duals_eq=torch.cat(
+                [state.duals_eq["own"].reshape(-1), self._link_duals(state.duals_eq).reshape(-1)]
+            ),
+            duals_ineq=state.duals_ineq.reshape(-1),
+            n_duals_eq=self.n_eq_real,
+            n_duals_ineq=self.n_ineq_real,
+            barrier=barrier,
+            error_scaling=error_scaling,
+        )
+
+    # -- line-search merit ---------------------------------------------------------
+
+    def merit_components(self, state, barrier):
+        """(theta, phi) for a filter line search: theta = 1-norm of all
+        constraint residuals, phi = barrier objective.  Values only."""
+        fns = self.fns
+        x = state.primals["blocks"]
+        s = state.slacks
+        args = (x, self.params, self.x_mask)
+        theta = (
+            fns.c_eq(*args, self.eq_mask).abs().sum()
+            + (fns.c_ineq(*args, self.ineq_mask) - s).abs().sum()
+            + self._link_resid(x, state.primals["coupling"]).abs().sum()
+        )
+        b = self.bounds
+        phi = self.obj_factor * fns.total_objective(*args) - barrier * (
+            base.log_barrier_sum(x, b.xl["blocks"], b.xu["blocks"])
+            + base.log_barrier_sum(s, b.gl, b.gu)
+        )
+        return theta, phi
+
+    # -- KKT evaluation ------------------------------------------------------------
+
+    def eval_kkt_data(self, state, barrier):
+        return self.kkt_from_ad(state, self.eval_ad(state), barrier)
+
+    def _kkt_core_banded(self, state, bounds, grad_f, jtlam, c_eq, c_ineq, barrier):
+        """(band store, rhs): matrix data is the (N, p+1, nk) band store in
+        ``kkt_dtype``; the rhs is float64 from the exact VJP contraction."""
+        x = state.primals["blocks"]
+        c = state.primals["coupling"]
+        s = state.slacks
+        xl, xu = bounds.xl["blocks"], bounds.xu["blocks"]
+        sigma_x = base.barrier_hessian_diag(
+            x, xl, xu, state.duals_primals_lb["blocks"], state.duals_primals_ub["blocks"]
+        )
+        sigma_s = base.barrier_hessian_diag(
+            s, bounds.gl, bounds.gu, state.duals_slacks_lb, state.duals_slacks_ub
+        )
+        data = self._banded_bands0(state, sigma_x, sigma_s)
+        rhs_x = -(
+            self._grad_lag_primals(state, grad_f, jtlam)
+            + base.barrier_grad_term(x, xl, xu, barrier)
+        )
+        rhs_s = -(-state.duals_ineq + base.barrier_grad_term(s, bounds.gl, bounds.gu, barrier))
+        rhs_blocks = torch.cat(
+            [rhs_x, rhs_s, -c_eq, -(c_ineq - s), -self._link_resid(x, c)], dim=1
+        )
+        rhs = BlockRhs(
+            blocks=rhs_blocks, coupling=self._scatter_link_duals_to_coupling(state.duals_eq)
+        )
+        return data, rhs
+
+    def assemble_kkt(self, data_and_rhs, w_reg, c_reg) -> BandedLocalBlockKKT:
+        """Banded KKT with regularization: ``w_reg`` adds to the real
+        x-variable diagonals, ``c_reg`` sets the real constraint diagonals
+        to -c_reg, and the coupling block is Q = c_reg * I."""
+        data = data_and_rhs[0]
+        dt = data.dtype
+        w_reg = torch.as_tensor(w_reg, dtype=dt, device=data.device)
+        c_reg = torch.as_tensor(c_reg, dtype=dt, device=data.device)
+        bands = data.clone()
+        bands[:, 0, :] += w_reg * self._b_w_mask.to(dt) - c_reg * self._b_c_mask.to(dt)
+        return BandedLocalBlockKKT(
+            sym_bands=bands,
+            border_loc=self._border_loc_perm.to(dt),
+            row_idx=self.row_idx,
+            q=c_reg * torch.eye(self.ncv, dtype=dt, device=data.device),
+            mask=torch.ones(self.N, dtype=dt, device=data.device),
+            perm=self._b_perm,
+            iperm=self._b_iperm,
+            assembly=self.sc_assembly,
+        )
+
+    def kkt_rhs(self, data_and_rhs) -> BlockRhs:
+        return data_and_rhs[1]
+
+    # -- delta extraction ------------------------------------------------------------
+
+    def extract_deltas(self, state, sol: BlockRhs, barrier) -> IPState:
+        bounds = self.bounds
+        n, me, mi = self.n, self.me, self.mi
+        blocks = sol.blocks
+        dx = blocks[:, self.off_x : self.off_x + n]
+        ds = blocks[:, self.off_s : self.off_s + mi]
+        dyeq = blocks[:, self.off_yeq : self.off_yeq + me]
+        dyineq = blocks[:, self.off_yineq : self.off_yineq + mi]
+        dlam = blocks[:, self.off_lam : self.off_lam + self.n_link] * self.link_mask
+        x = state.primals["blocks"]
+        dzl = base.delta_duals_lb(
+            barrier, state.duals_primals_lb["blocks"], dx, x, bounds.xl["blocks"]
+        )
+        dzu = base.delta_duals_ub(
+            barrier, state.duals_primals_ub["blocks"], dx, x, bounds.xu["blocks"]
+        )
+        dvl = base.delta_duals_lb(barrier, state.duals_slacks_lb, ds, state.slacks, bounds.gl)
+        dvu = base.delta_duals_ub(barrier, state.duals_slacks_ub, ds, state.slacks, bounds.gu)
+        zeros_c = torch.zeros(self.ncv, dtype=F64, device=self.device)
+        return IPState(
+            primals={"blocks": dx, "coupling": sol.coupling},
+            slacks=ds,
+            duals_eq={"own": dyeq, "link": dlam},
+            duals_ineq=dyineq,
+            duals_primals_lb={"blocks": dzl, "coupling": zeros_c},
+            duals_primals_ub={"blocks": dzu, "coupling": zeros_c},
+            duals_slacks_lb=dvl,
+            duals_slacks_ub=dvu,
+        )
+
+    # -- fraction to the boundary -----------------------------------------------------
+
+    def fraction_to_the_boundary(self, state, deltas, tau):
+        bounds = self.bounds
+        fl = lambda t: t.reshape(-1)
+        x, dx = fl(state.primals["blocks"]), fl(deltas.primals["blocks"])
+        s, ds = fl(state.slacks), fl(deltas.slacks)
+        a_p = torch.minimum(
+            torch.minimum(
+                base.ftb_lb(tau, x, dx, fl(bounds.xl["blocks"])),
+                base.ftb_ub(tau, x, dx, fl(bounds.xu["blocks"])),
+            ),
+            torch.minimum(
+                base.ftb_lb(tau, s, ds, fl(bounds.gl)),
+                base.ftb_ub(tau, s, ds, fl(bounds.gu)),
+            ),
+        )
+        duals = lambda st: (
+            fl(st.duals_primals_lb["blocks"]),
+            fl(st.duals_primals_ub["blocks"]),
+            fl(st.duals_slacks_lb),
+            fl(st.duals_slacks_ub),
+        )
+        a_d = torch.stack(
+            [base.ftb_duals(tau, z, dz) for z, dz in zip(duals(state), duals(deltas))]
+        ).min()
+        return a_p, a_d
+
+    # -- step update -------------------------------------------------------------------
+
+    def apply_step(self, state, deltas, alpha_primal, alpha_dual, alpha=1.0) -> IPState:
+        ap = alpha * alpha_primal
+        ad = alpha * alpha_dual
+        # primals and slacks step with alpha_primal, every dual family with
+        # alpha_dual
+        return IPState(
+            **{
+                f: map_leaf(
+                    lambda s, d, a=(ap if f in ("primals", "slacks") else ad): s + a * d,
+                    getattr(state, f),
+                    getattr(deltas, f),
+                )
+                for f in STATE_FIELDS
+            }
+        )

@@ -1,0 +1,43 @@
+"""Linear solver protocol (the PyTorch counterpart of ``parapint_tpu.linalg.base``).
+
+``numeric`` returns a *factorization* object of device tensors (including a
+status code and the inertia) instead of mutating solver state, so a solver
+object holds only configuration and can be reused across systems of the
+same structure.
+"""
+
+from abc import ABC, abstractmethod
+from typing import Any, Tuple
+
+import torch
+
+from parapint_tpu_torch.linalg.results import LinearSolverResults
+
+
+class LinearSolver(ABC):
+    """Abstract linear solver: symbolic, numeric, solve, inertia, status."""
+
+    @abstractmethod
+    def symbolic(self, kkt: Any) -> LinearSolverResults:
+        """Validate the structure (shapes / padding)."""
+
+    @abstractmethod
+    def numeric(self, kkt: Any) -> Any:
+        """Factorize; returns the factorization object."""
+
+    @abstractmethod
+    def solve(self, fact: Any, rhs: Any) -> Any:
+        """Back solve with a previous factorization."""
+
+    @abstractmethod
+    def inertia(self, fact: Any) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(num_pos, num_neg, num_zero) as device scalars."""
+
+    @abstractmethod
+    def status(self, fact: Any) -> torch.Tensor:
+        """Device int32 scalar holding a :class:`LinearSolverStatus` value."""
+
+    def solve_with_status(self, fact: Any, rhs: Any) -> Tuple[Any, torch.Tensor]:
+        """Back solve, returning ``(solution, status)``; direct solvers
+        report the factorization status."""
+        return self.solve(fact, rhs), self.status(fact)

@@ -1,0 +1,122 @@
+"""PyTorch batched LDL^T (parapint_tpu_torch/ops/ldl.py) vs
+parapint_tpu.ops.ldl on the same numpy inputs.
+
+float64 runs compare against the reference's float64 path at 1e-10 (its own
+fused-vs-separate bound in tests/test_ldl.py); float32 runs go through the
+panel wrapper's plain version and compare at 2e-5 relative to the largest
+entry (float32 eps times the up-to-128-column elimination chain: 1.2e-7 x
+128 = 1.5e-5; observed 3e-7).  Inertia exact.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from parapint_tpu.ops import ldl as jldl
+from parapint_tpu_torch.ops import ldl as tldl
+
+torch.set_num_threads(1)
+
+
+def kkt_like(n, m, rng, c_reg=0.0):
+    """Quasi-definite KKT-like matrix [H J^T; J -c I] (as tests/test_ldl.py)."""
+    A = rng.standard_normal((n, n))
+    H = A @ A.T + n * np.eye(n)
+    J = rng.standard_normal((m, n))
+    K = np.zeros((n + m, n + m))
+    K[:n, :n] = H
+    K[:n, n:] = J.T
+    K[n:, :n] = J
+    K[n:, n:] = -c_reg * np.eye(m)
+    return K
+
+
+def _t(a, dtype=torch.float64):
+    return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+
+@pytest.mark.parametrize("n,bs", [(6, 8), (20, 8), (40, 16), (130, 64)])
+def test_factor_winv_batched_matches_reference_f64(n, bs):
+    rng = np.random.default_rng(5)
+    A = np.stack([kkt_like(n - 2, 2, rng, c_reg=1e-6) for _ in range(4)])
+    LD_r, d_r, W_r = jldl.ldl_factor_winv_batched(jnp.asarray(A), block_size=bs)
+    LD, d, W = tldl.ldl_factor_winv_batched(_t(A), block_size=bs)
+    assert LD.shape == LD_r.shape and W.shape == W_r.shape
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_r), rtol=1e-10)
+    np.testing.assert_allclose(
+        np.tril(LD.numpy()), np.tril(np.asarray(LD_r)), rtol=1e-10, atol=1e-10
+    )
+    np.testing.assert_allclose(W.numpy(), np.asarray(W_r), rtol=1e-10, atol=1e-10)
+    npad = W.shape[-1]
+    L = np.tril(LD.numpy(), -1) + np.eye(npad)
+    prod = np.einsum("bij,bjk->bik", W.numpy(), L)
+    np.testing.assert_allclose(prod, np.broadcast_to(np.eye(npad), prod.shape), atol=1e-8)
+
+
+@pytest.mark.parametrize("n,bs", [(64, 64), (128, 64), (49, 64)])
+def test_factor_winv_batched_f32_panel_path(n, bs):
+    """float32 goes through the panel wrapper (plain version on the CPU)."""
+    rng = np.random.default_rng(n)
+    A = np.stack([kkt_like(n - 5, 5, rng, c_reg=1e-3) for _ in range(3)])
+    s = np.stack([np.asarray(jldl.ruiz_scale(jnp.asarray(a))) for a in A])
+    A = (A * s[:, :, None] * s[:, None, :]).astype(np.float32)
+    LD_r, d_r, W_r = jldl.ldl_factor_winv_batched(jnp.asarray(A), block_size=bs)
+    LD, d, W = tldl.ldl_factor_winv_batched(torch.as_tensor(A), block_size=bs)
+    scale = np.abs(np.asarray(LD_r)).max()
+    assert np.abs(np.tril(LD.numpy()) - np.tril(np.asarray(LD_r))).max() < 2e-5 * scale
+    assert np.abs(W.numpy() - np.asarray(W_r)).max() < 2e-5 * np.abs(np.asarray(W_r)).max()
+    pos, neg, zero = tldl.ldl_inertia(d, n=n)
+    pr, nr, zr = jax.vmap(lambda x: jldl.ldl_inertia(x, n=n))(d_r)
+    assert pos.tolist() == np.asarray(pr).tolist()
+    assert neg.tolist() == np.asarray(nr).tolist() == [5, 5, 5]
+    assert zero.tolist() == np.asarray(zr).tolist()
+
+
+def test_panel_width_snaps_to_multiple_of_8():
+    """The chain SC's 49-wide tiles factor as 56-wide panels; the extra rows
+    are identity padding excluded from the inertia (test_ldl.py:131)."""
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((3, 49, 49))
+    A = (A + A.transpose(0, 2, 1)) + 49 * np.eye(49)
+    LD, d, W = tldl.ldl_factor_winv_batched(_t(A), block_size=64)
+    _, d_r, _ = jldl.ldl_factor_winv_batched(jnp.asarray(A), block_size=64)
+    assert LD.shape[-1] == 56 == d_r.shape[-1]
+    L = np.tril(LD.numpy(), -1) + np.eye(56)
+    rec = np.einsum("bij,bj,bkj->bik", L, d.numpy(), L)[:, :49, :49]
+    assert np.max(np.abs(rec - A)) < 1e-9 * np.max(np.abs(A))
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_r), rtol=1e-10)
+    pos, neg, zero = tldl.ldl_inertia(d, n=49)
+    for i in range(3):
+        w = np.linalg.eigvalsh(A[i])
+        assert (int(pos[i]), int(neg[i]), int(zero[i])) == ((w > 0).sum(), (w < 0).sum(), 0)
+
+
+def test_ruiz_scale_matches_reference():
+    rng = np.random.default_rng(1)
+    A = np.stack([kkt_like(30, 6, rng) * 10.0 ** rng.uniform(-8, 8) for _ in range(3)])
+    s_r = np.stack([np.asarray(jldl.ruiz_scale(jnp.asarray(a))) for a in A])
+    np.testing.assert_allclose(tldl.ruiz_scale(_t(A)).numpy(), s_r, rtol=1e-13)
+
+
+@pytest.mark.parametrize("zero_tol", [0.0, 1e-3])
+def test_ldl_inertia_matches_reference(zero_tol):
+    d = np.array([[3.0, -2.0, 0.0, 1e-5, -1e-4, 1.0, np.nan, 1.0]])
+    pos, neg, zero = tldl.ldl_inertia(_t(d), n=7, zero_tol=zero_tol)
+    ref = jldl.ldl_inertia(jnp.asarray(d[0]), n=7, zero_tol=zero_tol)
+    assert (int(pos[0]), int(neg[0]), int(zero[0])) == tuple(int(v) for v in ref)
+
+
+@pytest.mark.parametrize("n", [8, 16, 40, 64])
+def test_recursive_unit_lower_inverse(n):
+    """The block-recursive inverse (not Neumann doubling) on the squared
+    1D Laplacian, whose nilpotent powers grow before they vanish."""
+    T = 2.0 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
+    K = T @ T + 1e-3 * np.eye(n)
+    C = np.linalg.cholesky(K)
+    L = C / np.diag(C)[None, :]  # unit lower factor of K = L D L^T
+    W = tldl._unit_lower_inv_b(_t(L[None]))[0].numpy()
+    W_r = np.asarray(jldl._unit_lower_inv_b(jnp.asarray(L[None])))[0]
+    np.testing.assert_allclose(W, W_r, rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(W @ L, np.eye(n), atol=1e-9)

@@ -1,0 +1,104 @@
+"""PyTorch panel factorization (parapint_tpu_torch/ops/ldl_panel.py) vs the
+JAX package's Pallas kernel in interpret mode and its XLA column loop.
+
+On the CPU the wrapper takes the plain version, so these tests hold the
+plain version — the kernel's oracle on the card — against the reference.
+Inputs are float32 from a numpy seed.  Tolerance: 3e-5 x max|reference|
+for the packed factor (the reference's own slab-vs-unblocked bound in
+tests/test_pallas_ldl.py), 2e-3 for W L - I (same source); inertia exact.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from parapint_tpu.ops.ldl import _ldl_unblocked
+from parapint_tpu.ops.pallas_ldl import ldl_panels_slab_winv as jax_slab_winv
+from parapint_tpu_torch.ops import ldl_panel
+from parapint_tpu_torch.ops.ldl_panel import (
+    ldl_panels_slab_winv,
+    ldl_panels_slab_winv_plain,
+    random_panels as _panels,
+)
+
+torch.set_num_threads(1)
+
+RTOL = 3e-5
+
+
+def _signs(d):
+    d = np.asarray(d)
+    return ((d > 0).sum(), (d < 0).sum(), (d == 0).sum())
+
+
+@pytest.mark.parametrize("b", [8, 56, 64])
+@pytest.mark.parametrize(
+    "case", ["plain", "garbage_upper", "zero_pivot"]
+)
+def test_plain_matches_pallas_interpret_and_xla_loop(b, case):
+    A = _panels(3, b, seed=b, **({case: True} if case != "plain" else {}))
+    LD, W = ldl_panels_slab_winv_plain(torch.as_tensor(A))
+    LD, W = LD.numpy(), W.numpy()
+    # the reference reads only the lower triangle too: symmetrize from it
+    A_sym = np.tril(A) + np.swapaxes(np.tril(A, -1), 1, 2)
+    ref_loop = np.tril(np.asarray(jax.vmap(_ldl_unblocked)(jnp.asarray(A_sym))))
+    ref_k, W_k = jax_slab_winv(jnp.asarray(A), interpret=True)
+    ref_k, W_k = np.tril(np.asarray(ref_k)), np.asarray(W_k)
+    scale = np.abs(ref_loop).max()
+    assert np.abs(np.tril(LD) - ref_loop).max() < RTOL * scale
+    assert np.abs(np.tril(LD) - ref_k).max() < RTOL * scale
+    assert np.abs(W - W_k).max() < RTOL * max(1.0, np.abs(W_k).max())
+    assert np.all(np.triu(LD, 1) == 0.0)
+    for i in range(3):
+        assert _signs(np.diag(LD[i])) == _signs(np.diag(ref_k[i]))
+        assert _signs(np.diag(LD[i])) == _signs(np.diag(ref_loop[i]))
+    if case == "zero_pivot":
+        assert _signs(np.diagonal(LD, axis1=1, axis2=2))[2] == 3
+    L = np.tril(LD, -1) + np.eye(b)
+    assert np.abs(np.einsum("bij,bjk->bik", W, L) - np.eye(b)).max() < 2e-3
+    d = np.diagonal(LD, axis1=1, axis2=2)
+    rec = np.einsum("bij,bj,bkj->bik", L, d, L)
+    assert np.abs(rec - A_sym).max() < RTOL * np.abs(A_sym).max()
+
+
+def test_inertia_matches_eigenvalues():
+    A = _panels(4, 64, seed=7)
+    LD, _ = ldl_panels_slab_winv_plain(torch.as_tensor(A))
+    for i in range(4):
+        w = np.linalg.eigvalsh(A[i].astype(np.float64))
+        assert _signs(np.diag(LD[i].numpy())) == ((w > 0).sum(), (w < 0).sum(), 0)
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    A = torch.as_tensor(_panels(2, 16, seed=3))
+    before = ldl_panels_slab_winv.launches
+    LD, W = ldl_panels_slab_winv(A)
+    LDp, Wp = ldl_panels_slab_winv_plain(A)
+    assert torch.equal(LD, LDp) and torch.equal(W, Wp)
+    assert ldl_panels_slab_winv.launches == before  # no kernel launch
+
+
+@pytest.mark.parametrize(
+    "A, err",
+    [
+        (torch.zeros(2, 12, 12), ValueError),  # b % 8 != 0
+        (torch.zeros(2, 136, 136), ValueError),  # b > 128
+        (torch.zeros(2, 16, 16, dtype=torch.float64), TypeError),
+        (torch.zeros(2, 16, 8), ValueError),
+        (torch.zeros(2, 16, 16).transpose(1, 2), ValueError),  # non-contiguous
+    ],
+)
+def test_wrapper_rejects_unsupported_input(A, err):
+    with pytest.raises(err):
+        ldl_panels_slab_winv(A)
+
+
+def test_kernel_source_and_build_flags():
+    """The CUDA source exists in the package and the build targets sm_90a
+    as a plain C-ABI library (nothing here compiles it: no nvcc)."""
+    src = ldl_panel.SOURCE.read_text()
+    assert 'extern "C"' in src and "ldl_panel_winv_f32" in src
+    assert "arch=compute_90a,code=sm_90a" in ldl_panel.NVCC_FLAGS
+    assert ldl_panel.BUILD_DIR.name == "_build"
