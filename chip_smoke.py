@@ -1,27 +1,44 @@
-"""Smoke run of the PyTorch port on one CUDA card: build the panel kernel,
-hold it against its plain version, and solve the 64-block Burgers flagship
-through the port's public entry points.
+"""Smoke run of the PyTorch port on one CUDA card: build the kernels, hold
+each against its plain version, and drive the Burgers flagship (nfe_x=50,
+nfe_t=256, 64 blocks) through the port's public entry points on the dense
+block path, its solver variants, and the banded path.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase's exception is caught):
 
-1. device   — require CUDA; print the card's name and power limit, the
-              torch/CUDA versions and ``nvcc --version``.
-2. build    — compile the LDL^T + L^{-1} panel kernel from
-              ``parapint_tpu_torch/csrc`` into ``parapint_tpu_torch/_build``.
-3. kernel   — kernel vs ``ldl_panels_slab_winv_plain`` on the card, at the
-              flagship's panel shapes plus edge cases; time both.
-4. flagship — Burgers nfe_x=50, nfe_t=256, 64 blocks, banded KKT in
-              float32, 128-wide tiles, cyclic-reduction coupling solve, tol
-              1e-8, through ``make_fused_ip_solve``; require status optimal,
-              the JAX package's objective, and that every panel
-              factorization of the run went through the kernel.
+1. device          — require CUDA; print the card's name and power limit,
+                     the torch/CUDA versions and ``nvcc --version``.
+2. build           — compile ``parapint_tpu_torch/csrc/*.cu`` (one nvcc per
+                     source, started together) into ``parapint_tpu_torch/_build``.
+3. kernels         — every kernel entry (K1 ``ldl_panels_slab_winv``, K2
+                     ``ldl_panels_slab``, K5 ``ldl_panels``, K6
+                     ``winv_apply_fused``) vs its plain version on the card at
+                     the path's shapes plus edge cases; time kernel, plain
+                     version and (K6) the two-matmul form.
+4. dense flagship  — dense block form, float32 KKT, ``SchurComplementSolver``
+                     in W form with cyclic-reduction coupling (the JAX
+                     package's ``burgers_64blocks_cr``), tol 1e-8, through
+                     ``make_fused_ip_solve``: status optimal, the JAX
+                     objective, K1 launches == 14 x numerics, K6 launches ==
+                     2 x back solves.
+5. dense SC        — the same with the dense ``DenseLDLSolver`` coupling:
+                     K5 launches == 25 x numerics.
+6. bf16 W          — W stored in bf16, adaptive refinement with the
+                     auto-gate: optimal, bf16 K6 launches > 0.
+7. LD mode         — the first-iteration KKT through the packed-LDL^T
+                     ``SchurComplementSolver(block_size=128)`` on the card
+                     and on a CPU copy: inertia equal, solutions close, K2 ==
+                     8 and K5 == 25 launches.
+8. banded flagship — the banded block form, ``BandedSchurComplementSolver``
+                     (the bench flagship): optimal, K1 launches == 22 x numerics.
 
-The last line of standard output is the JSON result; the line before it
-lists each kernel with its launches, error and times.
+Every measurement line carries the card's name and power limit.  The line
+before the last lists each kernel with launches, error, times and bound; the
+last line of standard output is the JSON result.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -30,7 +47,7 @@ import time
 import numpy as np
 import torch
 
-# JAX package's objective for the flagship configuration below, on the CPU:
+# JAX package's objective for the flagship, banded path on the CPU:
 #   JAX_PLATFORMS=cpu python - <<'EOF'
 #   import jax.numpy as jnp, parapint_tpu as pt
 #   from parapint_tpu.examples import burgers
@@ -44,77 +61,99 @@ import torch
 #   print(status, int(res.iterations), repr(float(iface.evaluate_objective())))
 #   EOF
 # -> InteriorPointStatus.optimal 6 0.04755768812300182
+# The same NLP has the same optimum whatever the linear algebra, so every
+# phase holds its objective against this value.  The JAX dense path
+# (bench.py with PT_BENCH_BLOCK=dense: the script above with the default
+# block form and
+#   pt.SchurComplementSolver(block_size=128, explicit_inverse=True,
+#       factor_dtype=jnp.float32, refine_steps=0,
+#       schur_complement_solver=pt.BlockTridiagSolver())
+# ) -> InteriorPointStatus.optimal 7 0.04755768812300328
 JAX_OBJECTIVE = 0.04755768812300182
 JAX_ITERATIONS = 6
+JAX_DENSE_ITERATIONS = 7
 OBJ_REL_GAP = 1e-6
 FLAGSHIP = dict(nfe_x=50, nfe_t=256, num_time_blocks=64)
 TILE_SIZE = 128
 TOL = 1e-8
-PANELS_PER_NUMERIC = 22  # 8 tiles x 2 panels (Thomas) + 6 CR levels
+BANDED_PANELS_PER_NUMERIC = 22  # 8 tiles x 2 panels (Thomas) + 6 CR levels
+DENSE_K1_PER_NUMERIC = 14  # 8 block panels (1024 = 8 x 128) + 6 CR levels
+SC_PANELS_PER_NUMERIC = 25  # dense SC: 3087 -> 3200 = 25 x 128
+LD_K2_PER_NUMERIC = 8
 
-# kernel-vs-plain shapes: the flagship's (64, 64, 64) Thomas panels and
-# (E, 56, 56) CR panels, the largest supported panel, and the smallest
-KERNEL_SHAPES = [(64, 64, 64), (32, 56, 56), (1, 56, 56), (64, 128, 128), (3, 8, 8)]
-TIMED_SHAPES = [(64, 64, 64)] + [(e, 56, 56) for e in (32, 16, 8, 4, 2, 1)]
-# Both versions run the same float32 algorithm; they differ only in
-# rounding (fused multiply-adds, evaluation order), so entries agree to a few
-# float32 ulps of the panel's largest factor entry.  Inertia must be equal.
-KERNEL_RTOL = 3e-5
+# Panel kernels: kernel and plain version run the same float32 operations in
+# the same order per entry (each product rounded before its subtraction, no
+# fused multiply-add, IEEE division), so the lower triangle of LD and W must
+# be bitwise equal; inertia then is too.  A kernel that reorders or fuses
+# that arithmetic must change this check together with it (ROADMAP C5).
+# K6: kernel and plain version sum n products twice in float32 in different
+# orders.  Rounding errors of such sums grow as a random walk, so each entry
+# of either result lies within about sqrt(n) eps_f32 of the exact value,
+# relative to the same computation on absolute values (|ref|); the two are
+# held to K6_TOL of that unit per entry.  On the CPU, float32 against float64
+# at this script's K6 shapes reached at most 0.15 unit, while an f32 W read
+# as bf16 reaches 46 to 1354 units (and the check below shows it fails).
+F32_EPS = float(np.finfo(np.float32).eps)
+K6_TOL = 2.0
+# LD mode: card and CPU solve the same float32-factored system and refine it
+# in float64 to the adaptive probe's 1e-5 relative residual; the two
+# solutions may differ by that residual times the system's conditioning.
+LD_SOLUTION_RTOL = 1e-3
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
+# the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+SMI = ""
+
+
+def say(*parts):
+    print(*parts, f"[{SMI}]")
+
+
+def bound(nbytes, flops):
+    """(least ms on the card, what bounds it)."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def panel_bound(B, b, with_w):
+    """LDL^T of B panels: read A, write LD (and W); b^3/3 multiply-adds for
+    the factor, b^3/6 more for W."""
+    return bound((3 if with_w else 2) * B * b * b * 4, B * b**3 * (1.0 if with_w else 2.0 / 3.0))
+
+
+def winv_bound(B, n, nk, itemsize):
+    """Read W, d, s, b once, write x; two GEMVs (4 n^2 flops) per block."""
+    return bound(B * n * n * itemsize + B * n * 4 + 3 * B * nk * 4, 4.0 * B * n * n)
 
 
 def phase_device():
-    smi = subprocess.run(
+    global SMI
+    SMI = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(SMI)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    from parapint_tpu_torch.ops.ldl_panel import _nvcc
+    from parapint_tpu_torch.ops.cuda_build import nvcc
 
-    nvcc = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True, check=True)
-    print(nvcc.stdout.strip().splitlines()[-1])
-    return smi
+    out = subprocess.run([nvcc(), "--version"], capture_output=True, text=True, check=True)
+    print(out.stdout.strip().splitlines()[-1])
 
 
 def phase_build():
-    from parapint_tpu_torch.ops import ldl_panel
+    from parapint_tpu_torch.ops import cuda_build, ldl_panel, winv_apply
 
     t0 = time.perf_counter()
-    path = ldl_panel.build()
+    paths = cuda_build.build_all([ldl_panel.SOURCE, winv_apply.SOURCE])
     ldl_panel._load()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
-    if ldl_panel.build_log:
-        print(ldl_panel.build_log.strip())
-
-
-def _inertia(LD):
-    d = torch.diagonal(LD, dim1=1, dim2=2)
-    return ((d > 0).sum().item(), (d < 0).sum().item(), (d == 0).sum().item())
-
-
-def compare_kernel(A_np, device):
-    """Kernel vs plain on the same panels; returns max abs errors."""
-    from parapint_tpu_torch.ops.ldl_panel import (
-        ldl_panels_slab_winv,
-        ldl_panels_slab_winv_plain,
-    )
-
-    A = torch.as_tensor(A_np, device=device)
-    LD_k, W_k = ldl_panels_slab_winv(A)
-    LD_p, W_p = ldl_panels_slab_winv_plain(A)
-    torch.cuda.synchronize()
-    e_ld = (torch.tril(LD_k) - torch.tril(LD_p)).abs().max().item()
-    e_w = (W_k - W_p).abs().max().item()
-    s_ld = max(1.0, torch.tril(LD_p).abs().max().item())
-    s_w = max(1.0, W_p.abs().max().item())
-    if not (e_ld <= KERNEL_RTOL * s_ld and e_w <= KERNEL_RTOL * s_w):
-        raise AssertionError(f"kernel disagrees at {tuple(A.shape)}: LD {e_ld} W {e_w}")
-    if _inertia(LD_k) != _inertia(LD_p):
-        raise AssertionError(f"inertia differs at {tuple(A.shape)}")
-    if torch.triu(LD_k, 1).abs().max().item() != 0.0:
-        raise AssertionError("kernel wrote the strict upper triangle")
-    return e_ld, e_w, _inertia(LD_k)
+    winv_apply._load()
+    print(f"build: {sorted(p.name for p in paths.values())} in {time.perf_counter() - t0:.2f} s")
+    for name, log in cuda_build.build_logs.items():
+        print(f"--- {name}\n{log.strip()}")
 
 
 def _median_ms(fn, calls, trials=7):
@@ -135,127 +174,324 @@ def _median_ms(fn, calls, trials=7):
     return float(np.median(times))
 
 
-def phase_kernel(device="cuda"):
+def _inertia(LD):
+    d = torch.diagonal(LD, dim1=1, dim2=2)
+    return ((d > 0).sum().item(), (d < 0).sum().item(), (d == 0).sum().item())
+
+
+def _check_panel(name, shape, out_k, out_p):
+    """Kernel vs plain panel outputs ((LD,) or (LD, W)): the lower triangle
+    of LD and all of W bitwise equal; returns the max error (0)."""
+    errs = []
+    for i, (k, p) in enumerate(zip(out_k, out_p)):
+        kk, pp = (torch.tril(k), torch.tril(p)) if i == 0 else (k, p)
+        e = (kk - pp).abs().max().item()
+        if not torch.equal(kk, pp):
+            raise AssertionError(f"{name} disagrees at {shape}: max|d| {e}, tolerance 0")
+        errs.append(e)
+    if _inertia(out_k[0]) != _inertia(out_p[0]):
+        raise AssertionError(f"{name}: inertia differs at {shape}")
+    if torch.triu(out_k[0], 1).abs().max().item() != 0.0:
+        raise AssertionError(f"{name} wrote the strict upper triangle")
+    say(f"{name} {shape}: max|d| {[f'{e:.3e}' for e in errs]} inertia {_inertia(out_k[0])} "
+        f"(tolerance 0: bitwise equal)")
+    return max(errs)
+
+
+def _winv_inputs(B, n, nk, seed, zero_pivot=False):
+    rng = np.random.default_rng(seed)
+    W = np.tril(rng.standard_normal((B, n, n)) / np.sqrt(n), -1) + np.eye(n)
+    d = rng.choice([-1.0, 1.0], (B, n)) * rng.uniform(0.1, 10.0, (B, n))
+    if zero_pivot:
+        d[:, n // 3] = 0.0
+    s = rng.uniform(0.5, 2.0, (B, nk))
+    b = rng.standard_normal((B, nk))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    return t(W), t(d), t(s), t(b)
+
+
+def phase_kernels():
     from parapint_tpu_torch.ops.ldl_panel import (
+        ldl_panels,
+        ldl_panels_plain,
+        ldl_panels_slab,
+        ldl_panels_slab_plain,
         ldl_panels_slab_winv,
         ldl_panels_slab_winv_plain,
         random_panels,
     )
+    from parapint_tpu_torch.ops.winv_apply import winv_apply_fused, winv_apply_plain
 
-    max_err = 0.0
-    cases = [(s, {}) for s in KERNEL_SHAPES]
-    cases += [((64, 64, 64), {"garbage_upper": True}), ((32, 56, 56), {"zero_pivot": True})]
-    for i, (shape, kw) in enumerate(cases):
-        e_ld, e_w, inert = compare_kernel(random_panels(*shape[:2], seed=i, **kw), device)
-        max_err = max(max_err, e_ld, e_w)
-        print(f"kernel {shape} {kw or ''}: max|dLD| {e_ld:.3e} max|dW| {e_w:.3e} "
-              f"inertia {inert} (tol {KERNEL_RTOL} x max(1, max|ref|))")
-    timings = {}
-    for shape in TIMED_SHAPES:
-        A = torch.as_tensor(random_panels(*shape[:2], seed=100), device=device)
-        ms = _median_ms(lambda: ldl_panels_slab_winv(A), 50)
-        plain_ms = _median_ms(lambda: ldl_panels_slab_winv_plain(A), 3)
-        timings[shape] = (ms, plain_ms)
-        print(f"time {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              "(per call, median of 7 warm back-to-back runs)")
-    return max_err, timings
+    cuda = lambda a: torch.as_tensor(a, device="cuda")
+    err = {"K1": 0.0, "K2": 0.0, "K5": 0.0, "K6": 0.0}
+    entries = {
+        "K1": (ldl_panels_slab_winv, ldl_panels_slab_winv_plain),
+        "K2": (lambda A: (ldl_panels_slab(A),), lambda A: (ldl_panels_slab_plain(A),)),
+        "K5": (lambda A: (ldl_panels(A),), lambda A: (ldl_panels_plain(A),)),
+    }
+    cases = {
+        "K1": [((64, 64, 64), {}), ((64, 128, 128), {}), ((32, 56, 56), {}), ((1, 56, 56), {}),
+               ((3, 8, 8), {}), ((64, 64, 64), {"garbage_upper": True}),
+               ((32, 56, 56), {"zero_pivot": True})],
+        "K2": [((64, 128, 128), {}), ((32, 56, 56), {}), ((3, 8, 8), {}),
+               ((64, 128, 128), {"garbage_upper": True}), ((32, 56, 56), {"zero_pivot": True})],
+        "K5": [((1, 128, 128), {}), ((1, 13, 13), {}), ((4, 15, 15), {}),
+               ((1, 128, 128), {"garbage_upper": True}), ((4, 15, 15), {"zero_pivot": True})],
+    }
+    for key, shapes in cases.items():
+        kern, plain = entries[key]
+        for i, (shape, kw) in enumerate(shapes):
+            A = cuda(random_panels(*shape[:2], seed=i, **kw))
+            out_k = kern(A)
+            torch.cuda.synchronize()
+            err[key] = max(err[key], _check_panel(f"{key} {kw or ''}", shape, out_k, plain(A)))
+
+    winv_cases = [((64, 1024, 922), False), ((13, 256, 200), False), ((7, 64, 64), True),
+                  ((3, 24, 20), True)]
+    for (B, n, nk), zp in winv_cases:
+        W, d, s, b = _winv_inputs(B, n, nk, seed=n, zero_pivot=zp)
+        for Wt in (W, W.to(torch.bfloat16)):
+            x_k = winv_apply_fused(Wt, d, s, b)
+            x_p = winv_apply_plain(Wt, d, s, b)
+            unit = np.sqrt(n) * F32_EPS * winv_apply_plain(Wt.abs(), d.abs(), s.abs(), b.abs())
+            e = (x_k - x_p).abs().max().item()
+            ratio = ((x_k - x_p).abs() / unit).max().item()
+            if not ratio <= K6_TOL:
+                raise AssertionError(f"K6 disagrees at {(B, n, nk)} {Wt.dtype}: "
+                                     f"{ratio} units > {K6_TOL}")
+            power = ""
+            if Wt.dtype == torch.float32:
+                # the tolerance must reject an f32 W read as bf16
+                x_bf = winv_apply_plain(Wt.to(torch.bfloat16), d, s, b)
+                bf_ratio = ((x_bf - x_p).abs() / unit).max().item()
+                if not bf_ratio > K6_TOL:
+                    raise AssertionError(f"K6 tolerance passes a bf16 read of W at {(B, n, nk)}")
+                power = f"; this W read as bf16: {bf_ratio:.1f} units"
+            err["K6"] = max(err["K6"], e)
+            say(f"K6 {(B, n, nk)} W {Wt.dtype} zero_pivot={zp}: max|d| {e:.3e}, max "
+                f"|d|/unit {ratio:.4f} (tol {K6_TOL} units per entry, unit sqrt(n) eps_f32 |ref| "
+                f"on |W|,|d|,|s|,|b|{power})")
+
+    # times at the dense path's shapes (median of 7 CUDA-event windows)
+    timing = {}
+
+    def time_panel(key, shape):
+        kern, plain = entries[key]
+        A = cuda(random_panels(*shape[:2], seed=100))
+        ms = _median_ms(lambda: kern(A), 20)
+        plain_ms = _median_ms(lambda: plain(A), 2, trials=3)
+        bd, by = panel_bound(shape[0], shape[1], key == "K1")
+        say(f"time {key} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bd:.5f} ms ({by})")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bd, bound_by=by, library_ms=None, shape=shape)
+
+    timing["K1"] = time_panel("K1", (64, 128, 128))
+    for shape in [(64, 64, 64)] + [(e, 56, 56) for e in (32, 16, 8, 4, 2, 1)]:
+        time_panel("K1", shape)
+    timing["K2"] = time_panel("K2", (64, 128, 128))
+    timing["K5"] = time_panel("K5", (1, 128, 128))
+
+    B, n, nk = 64, 1024, 922
+    W, d, s, b = _winv_inputs(B, n, nk, seed=7)
+    for Wt, key in ((W, "K6"), (W.to(torch.bfloat16), "K6 bf16")):
+        Wf = Wt.float()
+        v = torch.nn.functional.pad(b * s, (0, n - nk))[:, :, None]
+        dsafe = torch.where(d.abs() > 0, d, torch.ones_like(d))[:, :, None]
+        ms = _median_ms(lambda: winv_apply_fused(Wt, d, s, b), 20)
+        plain_ms = _median_ms(lambda: winv_apply_plain(Wt, d, s, b), 5)
+        # the library yardstick: the same function as two torch.matmul calls
+        # on an f32 W (the port never calls it)
+        lib_ms = _median_ms(lambda: Wf.transpose(1, 2) @ ((Wf @ v) / dsafe), 20)
+        bd, by = winv_bound(B, n, nk, Wt.element_size())
+        say(f"time {key} {(B, n, nk)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library (two calls) {lib_ms:.4f} ms, bound {bd:.5f} ms ({by}), "
+            f"{B * n * n * Wt.element_size() / (ms * 1e-3) / 1e9:.1f} GB/s of W")
+        timing[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bd, bound_by=by,
+                           library_ms=lib_ms, library="two torch.matmul calls", shape=(B, n, nk))
+    return err, timing
 
 
-def _kkt_to(kkt, device):
-    import dataclasses
+def _reset_counts():
+    from parapint_tpu_torch.ops.ldl_panel import ldl_panels, ldl_panels_slab, ldl_panels_slab_winv
+    from parapint_tpu_torch.ops.winv_apply import winv_apply_fused
 
-    return dataclasses.replace(
-        kkt, **{
-            f.name: getattr(kkt, f.name).to(device)
-            for f in dataclasses.fields(kkt)
-            if isinstance(getattr(kkt, f.name), torch.Tensor)
-        }
+    for fn in (ldl_panels, ldl_panels_slab, ldl_panels_slab_winv, winv_apply_fused):
+        fn.launches = 0
+    winv_apply_fused.launches_bf16 = 0
+
+
+def _counts():
+    from parapint_tpu_torch.ops.ldl_panel import ldl_panels, ldl_panels_slab, ldl_panels_slab_winv
+    from parapint_tpu_torch.ops.winv_apply import winv_apply_fused
+
+    return dict(K1=ldl_panels_slab_winv.launches, K2=ldl_panels_slab.launches,
+                K5=ldl_panels.launches, K6=winv_apply_fused.launches,
+                K6_bf16=winv_apply_fused.launches_bf16)
+
+
+def _dense_solver(coupling="cr", w_store=None, refine=0):
+    import parapint_tpu_torch as ptt
+
+    return ptt.SchurComplementSolver(
+        block_size=128, explicit_inverse=True, factor_dtype=torch.float32,
+        refine_steps=refine, w_store_dtype=w_store,
+        schur_complement_solver=ptt.BlockTridiagSolver() if coupling == "cr" else None,
     )
 
 
-def phase_flagship(device="cuda", config=FLAGSHIP, reference_objective=JAX_OBJECTIVE):
+def _dense_iface():
     import parapint_tpu_torch as ptt
     from parapint_tpu_torch.examples import burgers
-    from parapint_tpu_torch.ops.ldl_panel import ldl_panels_slab_winv
 
     t0 = time.perf_counter()
-    spec = burgers.build_spec(**config, device=device)
-    iface = ptt.DynamicSchurComplementInteriorPointInterface(
-        spec, kkt_dtype=torch.float32, block_form="banded", device=device
-    )
-    solver = ptt.BandedSchurComplementSolver(
-        tile_size=TILE_SIZE,
-        schur_complement_solver=ptt.BlockTridiagSolver(ns=iface.ns),
-        device=device,
-    )
-    print(f"flagship {config}: nk {iface.nk} p {iface.banded_plan.p} ns {iface.ns} "
-          f"ncv {iface.ncv} setup {time.perf_counter() - t0:.2f} s")
+    spec = burgers.build_spec(**FLAGSHIP)  # the card is the default device
+    iface = ptt.DynamicSchurComplementInteriorPointInterface(spec, kkt_dtype=torch.float32)
+    print(f"dense interface {FLAGSHIP}: nk {iface.nk} ns {iface.ns} ncv {iface.ncv} "
+          f"setup {time.perf_counter() - t0:.2f} s")
+    return iface
+
+
+def _objective_gap(iface, result, label):
+    import parapint_tpu_torch as ptt
+
+    if result.status != ptt.InteriorPointStatus.optimal.value:
+        raise AssertionError(f"{label}: status {result.status} after {result.iterations} iterations")
+    for v in result.state.primals.values():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{label}: non-finite primals")
+    iface._current_state = result.state
+    obj = float(iface.evaluate_objective())
+    gap = abs(obj - JAX_OBJECTIVE) / max(1.0, abs(JAX_OBJECTIVE))
+    if gap > OBJ_REL_GAP:
+        raise AssertionError(f"{label}: objective gap {gap} > {OBJ_REL_GAP}")
+    return obj, gap
+
+
+def _counted_solve(iface, solver, label, timed=0):
+    """One counted solve (every count zeroed just before, read just after),
+    then ``timed`` timed solves; returns (result, counts, first wall, walls)."""
+    import parapint_tpu_torch as ptt
+
     opts = ptt.IPOptions()
     opts.tol = TOL
     opts.linalg.solver = solver
     solve = ptt.make_fused_ip_solve(iface, opts)
     iface.set_bounds_relaxation_factor(opts.bounds_relaxation_factor)
     state0 = iface.init_state()
-
-    # the counted run: every count is zeroed just before it, read just after
-    ldl_panels_slab_winv.launches = 0
-    solver.n_numeric = 0
+    _reset_counts()
+    for attr in ("n_numeric", "n_solves"):
+        if hasattr(solver, attr):
+            setattr(solver, attr, 0)
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    t0 = time.perf_counter()
     result = solve(state0)
     torch.cuda.synchronize()
-    first_wall = time.perf_counter() - t1
-    launches = ldl_panels_slab_winv.launches
-    n_numeric = solver.n_numeric
-    print(f"untimed run: {first_wall:.3f} s, numeric factorizations {n_numeric}, "
-          f"panel kernel launches {launches}")
-    if result.status != ptt.InteriorPointStatus.optimal.value:
-        raise AssertionError(f"status {result.status} after {result.iterations} iterations")
-    if not (launches > 0 and launches == PANELS_PER_NUMERIC * n_numeric):
-        raise AssertionError(f"{launches} launches for {n_numeric} numeric factorizations")
-
+    first = time.perf_counter() - t0
+    counts = _counts()
+    counts["numerics"] = solver.n_numeric
+    counts["solves"] = getattr(solver, "n_solves", None)
+    obj, gap = _objective_gap(iface, result, label)
     walls = []
-    for _ in range(3):
+    for _ in range(timed):
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        t0 = time.perf_counter()
         result = solve(state0)
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t1)
-    wall = min(walls)
-    n_iter = result.iterations
-    iface._current_state = result.state
-    obj = float(iface.evaluate_objective())
-    gap = abs(obj - reference_objective) / max(1.0, abs(reference_objective))
-    for v in result.state.primals.values():
-        if not bool(torch.isfinite(v).all()):
-            raise AssertionError("non-finite primals")
-    print(f"flagship: status optimal, iterations {n_iter} (JAX {JAX_ITERATIONS}), "
-          f"objective {obj!r} (JAX {reference_objective!r}, rel gap {gap:.3e}), "
-          f"primal_inf {float(result.primal_inf):.3e}")
-    print(f"flagship: wall per solve {wall:.4f} s (min of {[round(w, 4) for w in walls]}), "
-          f"iter/s {(n_iter - 1) / wall:.3f} ((n_iter-1)/wall)")
-    if gap > OBJ_REL_GAP:
-        raise AssertionError(f"objective gap {gap} > {OBJ_REL_GAP}")
+        walls.append(time.perf_counter() - t0)
+    say(f"{label}: status optimal, iterations {result.iterations}, objective {obj!r} "
+        f"(JAX {JAX_OBJECTIVE!r}, rel gap {gap:.3e}), primal_inf {float(result.primal_inf):.3e}, "
+        f"untimed counted solve {first:.3f} s, launches {counts}")
+    if walls:
+        wall = min(walls)
+        say(f"{label}: wall per solve {wall:.4f} s (min of {[round(w, 4) for w in walls]}), "
+            f"iter/s {(result.iterations - 1) / wall:.3f} ((n_iter-1)/wall)")
+    return result, counts
 
-    # first iteration's KKT: kernel on the card vs the plain version (the
-    # same solver on a CPU copy of the KKT)
-    mu0 = torch.tensor(opts.init_barrier_parameter, dtype=torch.float64, device=device)
+
+def phase_dense(iface):
+    result, c = _counted_solve(iface, _dense_solver("cr"), "dense flagship", timed=3)
+    print(f"dense flagship: iterations {result.iterations} (JAX dense path {JAX_DENSE_ITERATIONS})")
+    if not (c["K1"] > 0 and c["K1"] == DENSE_K1_PER_NUMERIC * c["numerics"]):
+        raise AssertionError(f"K1: {c['K1']} launches for {c['numerics']} numerics")
+    if not (c["K6"] > 0 and c["K6"] == 2 * c["solves"]):
+        raise AssertionError(f"K6: {c['K6']} launches for {c['solves']} back solves")
+    return c
+
+
+def phase_dense_sc(iface):
+    _, c = _counted_solve(iface, _dense_solver("dense"), "dense SC")
+    if not (c["K5"] > 0 and c["K5"] == SC_PANELS_PER_NUMERIC * c["numerics"]):
+        raise AssertionError(f"K5: {c['K5']} launches for {c['numerics']} numerics")
+    return c
+
+
+def phase_bf16(iface):
+    solver = _dense_solver("cr", w_store=torch.bfloat16, refine=None)
+    _, c = _counted_solve(iface, solver, "bf16 W")
+    print(f"bf16 W: auto-gate fell back to the f32 W in {solver.n_gate_fallbacks} solve(s)")
+    if not c["K6_bf16"] > 0:
+        raise AssertionError("bf16 W: no bf16 K6 launch")
+    return c
+
+
+def _to_cpu(obj):
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).cpu()
+        for f in dataclasses.fields(obj) if isinstance(getattr(obj, f.name), torch.Tensor)
+    })
+
+
+def phase_ld(iface):
+    import parapint_tpu_torch as ptt
+
+    state0 = iface.init_state()
+    mu0 = torch.tensor(ptt.IPOptions().init_barrier_parameter, dtype=torch.float64, device=iface.device)
     data = iface.kkt_from_ad(state0, iface.eval_ad(state0), mu0)
-    kkt = iface.assemble_kkt(data, 0.0, 0.0)
-    fact_k = solver.numeric(kkt)
-    solver_cpu = ptt.BandedSchurComplementSolver(
+    kkt, rhs = iface.assemble_kkt(data, 0.0, 0.0), iface.kkt_rhs(data)
+    solver = ptt.SchurComplementSolver(block_size=128)
+    _reset_counts()
+    fact = solver.numeric(kkt)
+    x, status = solver.solve_with_status(fact, rhs)
+    torch.cuda.synchronize()
+    c = _counts()
+    cpu = ptt.SchurComplementSolver(block_size=128)
+    fact_p = cpu.numeric(_to_cpu(kkt))
+    x_p, status_p = cpu.solve_with_status(fact_p, _to_cpu(rhs))
+    inert_k = tuple(int(v) for v in fact.inertia.cpu())
+    inert_p = tuple(int(v) for v in fact_p.inertia)
+    dx = max((x.blocks.cpu() - x_p.blocks).abs().max().item(),
+             (x.coupling.cpu() - x_p.coupling).abs().max().item())
+    scale = max(x_p.blocks.abs().max().item(), x_p.coupling.abs().max().item())
+    say(f"LD mode first KKT: inertia card {inert_k} cpu {inert_p}, status {int(status)}/{int(status_p)}, "
+        f"max|dx| {dx:.3e} (max|x| {scale:.3e}, tol {LD_SOLUTION_RTOL} x max|x|), launches {c}")
+    if inert_k != inert_p:
+        raise AssertionError("LD mode: inertia differs between card and CPU")
+    if dx > LD_SOLUTION_RTOL * scale:
+        raise AssertionError(f"LD mode: solutions differ by {dx}")
+    if c["K2"] != LD_K2_PER_NUMERIC or c["K5"] != SC_PANELS_PER_NUMERIC:
+        raise AssertionError(f"LD mode: K2 {c['K2']} K5 {c['K5']} launches for one numeric")
+    return c
+
+
+def phase_banded():
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import burgers
+
+    t0 = time.perf_counter()
+    spec = burgers.build_spec(**FLAGSHIP)
+    iface = ptt.DynamicSchurComplementInteriorPointInterface(
+        spec, kkt_dtype=torch.float32, block_form="banded"
+    )
+    solver = ptt.BandedSchurComplementSolver(
         tile_size=TILE_SIZE, schur_complement_solver=ptt.BlockTridiagSolver(ns=iface.ns)
     )
-    fact_p = solver_cpu.numeric(_kkt_to(kkt, "cpu"))
-    inert_k = tuple(int(v) for v in fact_k.inertia.cpu())
-    inert_p = tuple(int(v) for v in fact_p.inertia)
-    dtinv = (fact_k.thomas.tinv.cpu() - fact_p.thomas.tinv).abs().max().item()
-    scale = fact_p.thomas.tinv.abs().max().item()
-    print(f"first KKT: inertia kernel {inert_k} plain {inert_p}, "
-          f"max|d tinv| {dtinv:.3e} (max|tinv| {scale:.3e})")
-    if inert_k != inert_p:
-        raise AssertionError("inertia of the first KKT differs between kernel and plain")
-    return launches, n_iter, wall, obj
+    print(f"banded interface {FLAGSHIP}: nk {iface.nk} p {iface.banded_plan.p} "
+          f"setup {time.perf_counter() - t0:.2f} s")
+    result, c = _counted_solve(iface, solver, "banded flagship", timed=1)
+    print(f"banded flagship: iterations {result.iterations} (JAX {JAX_ITERATIONS})")
+    if not (c["K1"] > 0 and c["K1"] == BANDED_PANELS_PER_NUMERIC * c["numerics"]):
+        raise AssertionError(f"banded: {c['K1']} K1 launches for {c['numerics']} numerics")
+    return c
 
 
 def main():
@@ -264,21 +500,42 @@ def main():
         sys.exit(1)
     import parapint_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
-    max_err, timings = phase_kernel()
-    launches, n_iter, wall, obj = phase_flagship()
-    ms, plain_ms = timings[(64, 64, 64)]
-    print(json.dumps({"kernels": [{
-        "name": "ldl_panels_slab_winv",
-        "route": "cuda",
-        "source": "parapint_tpu_torch/csrc/ldl_panel_winv.cu",
-        "replaces": "parapint_tpu/ops/pallas_ldl.py:127",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    err, timing = phase_kernels()
+    iface = _dense_iface()
+    dense = phase_dense(iface)
+    dense_sc = phase_dense_sc(iface)
+    phase_bf16(iface)
+    ld = phase_ld(iface)
+    del iface
+    torch.cuda.empty_cache()
+    banded = phase_banded()
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+
+    rows = [
+        ("K1", "ldl_panels_slab_winv", "parapint_tpu_torch/csrc/ldl_panel_winv.cu",
+         "parapint_tpu/ops/pallas_ldl.py:408", dense["K1"]),
+        ("K2", "ldl_panels_slab", "parapint_tpu_torch/csrc/ldl_panel_winv.cu",
+         "parapint_tpu/ops/pallas_ldl.py:364", ld["K2"]),
+        ("K5", "ldl_panels", "parapint_tpu_torch/csrc/ldl_panel_winv.cu",
+         "parapint_tpu/ops/pallas_ldl.py:583", dense_sc["K5"]),
+        ("K6", "winv_apply_fused", "parapint_tpu_torch/csrc/winv_apply.cu",
+         "parapint_tpu/ops/winv_apply.py:138", dense["K6"]),
+    ]
+    kernels = []
+    for key, name, source, replaces, launches in rows:
+        t = timing[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err[key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library": t.get("library"),
+            "shape": list(t["shape"]),
+        })
+    print(f"banded flagship K1 launches {banded['K1']} for {banded['numerics']} numerics [{SMI}]")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@ imports ``jax`` or ``parapint_tpu``.
 Precision policy (the reference's rule, ``parapint_tpu/__init__.py``):
 working vectors — rhs, residuals, convergence numbers — are explicit
 ``torch.float64``; float32 is used exactly where the reference uses it (the
-interface's ``kkt_dtype``, the tile factors, the panel kernel).  TF32 is
+interface's ``kkt_dtype``, the solvers' ``factor_dtype``, the kernels).  TF32 is
 switched off for every matmul: reduced-precision products destroy pivot
 signs (inertia) and make iterative refinement diverge, as bf16 passes did
 on the TPU.
@@ -29,9 +29,12 @@ from parapint_tpu_torch.options import (  # noqa: E402
 from parapint_tpu_torch.linalg import (  # noqa: E402
     BandedSchurComplementSolver,
     BlockTridiagSolver,
+    DenseLDLSolver,
+    DenseLUSolver,
     LinearSolver,
     LinearSolverResults,
     LinearSolverStatus,
+    SchurComplementSolver,
 )
 from parapint_tpu_torch.interfaces import (  # noqa: E402
     DynamicModelSpec,
@@ -56,6 +59,9 @@ __all__ = [
     "LinearSolver",
     "BlockTridiagSolver",
     "BandedSchurComplementSolver",
+    "DenseLDLSolver",
+    "DenseLUSolver",
+    "SchurComplementSolver",
     "DynamicModelSpec",
     "DynamicSchurComplementInteriorPointInterface",
     "FusedResult",

@@ -19,7 +19,10 @@ from typing import Optional
 
 import torch
 
-from parapint_tpu_torch.algorithms.interior_point import InteriorPointStatus
+from parapint_tpu_torch.algorithms.interior_point import (
+    InteriorPointStatus,
+    check_precision_compat,
+)
 from parapint_tpu_torch.linalg.results import LinearSolverStatus
 from parapint_tpu_torch.options import IPOptions
 
@@ -44,6 +47,7 @@ def make_fused_ip_solve(interface, options: Optional[IPOptions] = None):
     solver = options.linalg.solver
     if solver is None:
         raise ValueError("options.linalg.solver must be set")
+    check_precision_compat(interface, solver)
     do_ls = not options.line_search.disable
 
     tol = options.tol

@@ -1,8 +1,10 @@
-"""Carry iterates and model data across from the JAX package as numpy.
+"""Carry iterates, model data and linear systems across from the JAX
+package as numpy.
 
 The port never imports JAX; these functions take plain numpy arrays (or any
 array numpy can read) laid out as the JAX package's pytrees, so that the
-two packages can start from the same iterate and the same model data.
+two packages can start from the same iterate, the same model data and the
+same KKT system.
 """
 
 import numpy as np
@@ -58,3 +60,39 @@ def spec_arrays_from_numpy(spec, device) -> dict:
         dtype = torch.bool if a.dtype == np.bool_ else F64
         out[name] = torch.as_tensor(a, dtype=dtype, device=device)
     return out
+
+
+def _t(a, device, dtype=None):
+    a = np.array(a)
+    if dtype is None and a.dtype.kind == "i":
+        dtype = torch.int64
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def block_rhs_from_numpy(rhs, device):
+    """The port's ``BlockRhs`` from a JAX ``BlockRhs`` (arrays as numpy)."""
+    from parapint_tpu_torch.linalg.schur import BlockRhs
+
+    return BlockRhs(blocks=_t(rhs.blocks, device), coupling=_t(rhs.coupling, device))
+
+
+def block_kkt_from_numpy(kkt, device):
+    """The port's ``BlockKKT`` or ``LocalBlockKKT`` from the JAX package's
+    (told apart by ``border_loc``), dtypes kept and row indices int64."""
+    from parapint_tpu_torch.linalg.schur import BlockKKT, LocalBlockKKT
+
+    if hasattr(kkt, "border_loc"):
+        return LocalBlockKKT(
+            diag=_t(kkt.diag, device),
+            border_loc=_t(kkt.border_loc, device),
+            row_idx=_t(kkt.row_idx, device, torch.int64),
+            q=_t(kkt.q, device),
+            mask=_t(kkt.mask, device),
+            assembly=kkt.assembly,
+        )
+    return BlockKKT(
+        diag=_t(kkt.diag, device),
+        border=_t(kkt.border, device),
+        q=_t(kkt.q, device),
+        mask=_t(kkt.mask, device),
+    )

@@ -15,7 +15,7 @@ into blocks coupled through the interior y values at block boundaries.
 import numpy as np
 import torch
 
-from parapint_tpu_torch.interfaces.dynamic import DynamicModelSpec
+from parapint_tpu_torch.interfaces.dynamic import DynamicModelSpec, require_device
 
 OMEGA = 0.02
 V = 0.01
@@ -28,8 +28,11 @@ def build_spec(
     num_time_blocks: int = 4,
     start_t: float = 0.0,
     end_t: float = 1.0,
-    device="cpu",
+    device="cuda",
 ) -> DynamicModelSpec:
+    """The Burgers model family on ``device`` (the card by default; raises
+    without CUDA — pass ``device="cpu"`` for a CPU run)."""
+    device = require_device(device)
     if nfe_t % num_time_blocks != 0:
         raise ValueError("nfe_t must be a multiple of num_time_blocks")
     N = num_time_blocks

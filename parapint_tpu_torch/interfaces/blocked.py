@@ -1,5 +1,5 @@
-"""Masked, batched AD over a uniform family of NLP blocks (the subset of
-``parapint_tpu.interfaces.blocked`` that the banded interface runs).
+"""Masked, batched AD over a uniform family of NLP blocks and the dense
+per-block KKT assembly (counterpart of ``parapint_tpu.interfaces.blocked``).
 
 The user provides block functions ``f(x, p)``, ``c_eq(x, p)``,
 ``c_ineq(x, p)`` written in torch and shared across blocks, plus per-block
@@ -8,17 +8,32 @@ evaluation is ``torch.func.vmap``-ed over the block axis.  Ragged blocks are
 handled by row masks (masked rows evaluate to 0, so their Jacobian rows
 vanish) and variable masks (masked variables read as 0).
 
-The banded KKT assembly never materializes Hessians or Jacobians: it uses
-the probe closures ``hvp_lag``, ``jvp_eq``, ``vjp_eq``, ``jvp_ineq`` and
-``vjp_ineq``, each batched over blocks AND over a shared set of probe
-vectors.
+The dense KKT assembly materializes the per-block Hessian of the
+Lagrangian (``hess_lag``, forward-over-reverse) and the constraint Jacobians
+(``jac_eq``, ``jac_ineq``) and concatenates them into (N, nk, nk) blocks
+(:func:`assemble_block_diag`).  The banded KKT assembly never materializes
+Hessians or Jacobians: it uses the probe closures ``hvp_lag``, ``jvp_eq``,
+``vjp_eq``, ``jvp_ineq`` and ``vjp_ineq``, each batched over blocks AND over
+a shared set of probe vectors.
 """
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.func import grad, jvp, vjp, vmap
+from torch.func import grad, jacfwd, jacrev, jvp, vjp, vmap
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockKKTData:
+    """Batched per-block evaluation results (one leading N axis each)."""
+
+    hess: torch.Tensor  # (N, n, n)
+    jac_eq: torch.Tensor  # (N, me, n)
+    jac_ineq: torch.Tensor  # (N, mi, n)
+    sigma_x: torch.Tensor  # (N, n)
+    sigma_s: torch.Tensor  # (N, mi)
 
 
 def _probe(f, nstate: int):
@@ -69,6 +84,25 @@ class BatchedNLPFunctions:
         self.grad_f = vmap(grad(_f))
         self.c_eq = vmap(_ceq)
         self.c_ineq = vmap(_cineq)
+
+        # materialized derivatives (dense block form).  Model functions may
+        # mix dtypes internally (f64 constants under a float32 KKT): outputs
+        # are pinned to x's dtype, so the matrices come out in x's dtype
+        def _jac(fn, m):
+            if not m:
+                return lambda x, p, xm, mk: x.new_zeros((0, n_x))
+            # forward mode when the inputs are no more than the outputs
+            mode = jacfwd if n_x <= max(m, 1) else jacrev
+            return mode(lambda x, p, xm, mk: fn(x, p, xm, mk).to(x.dtype))
+
+        self.jac_eq = vmap(_jac(_ceq, n_eq))
+        self.jac_ineq = vmap(_jac(_cineq, n_ineq))
+
+        def _grad_lag(x, y_eq, y_ineq, obj_factor, p, xm, em, im):
+            lag = lambda xq: _lag(xq, y_eq, y_ineq, obj_factor, p, xm, em, im).to(xq.dtype)
+            return grad(lag)(x).to(x.dtype)
+
+        self.hess_lag = vmap(jacfwd(_grad_lag))
 
         # model functions may mix dtypes internally (f64 constants under a
         # float32 KKT); every probed closure's output is pinned to x's dtype
@@ -146,3 +180,53 @@ def selector_rows(sel_idx: np.ndarray, mask: np.ndarray, n: int) -> np.ndarray:
     for j in range(L):
         rows[:, j, sel_idx[j]] = mask[:, j]
     return rows
+
+
+def assemble_block_diag(
+    data: BlockKKTData,
+    eq_mask: torch.Tensor,  # (N, me) bool
+    ineq_mask: torch.Tensor,  # (N, mi) bool
+    x_mask: torch.Tensor,  # (N, n) bool
+    link_rows: torch.Tensor,  # (N, n_link, n) selector rows (masked)
+    link_mask: torch.Tensor,  # (N, n_link)
+    w_reg,
+    c_reg,
+) -> torch.Tensor:
+    """Batched dense diagonal blocks [K_b, B_b^T; B_b, -c_reg I] in the
+    layout [x, s, y_eq, y_ineq, lam], as one concatenation of block rows.
+
+    Masked rows/variables get decoupled -1/+1 diagonals.  ``w_reg`` adds to
+    the real-variable Hessian diagonal, ``c_reg`` sets the real constraint
+    diagonals to -c_reg.  Everything stays in the data's dtype: a float32
+    interface hands float32 data beside float64 regularization and link
+    rows, and a promotion would rebuild the (N, nk, nk) result in float64.
+    """
+    N, n = data.sigma_x.shape
+    me = data.jac_eq.shape[1]
+    mi = data.jac_ineq.shape[1]
+    n_link = link_rows.shape[1]
+    dt, dev = data.hess.dtype, data.hess.device
+    w_reg = torch.as_tensor(w_reg, dtype=dt, device=dev)
+    c_reg = torch.as_tensor(c_reg, dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    dg = torch.diag_embed
+    z = lambda r, c: torch.zeros((N, r, c), dtype=dt, device=dev)
+    jeq, jineq = data.jac_eq.to(dt), data.jac_ineq.to(dt)
+    hblk = data.hess + dg(torch.where(x_mask, data.sigma_x.to(dt) + w_reg, one))
+    s_coupling = -dg(ineq_mask.to(dt))
+    row_x = [hblk, z(n, mi), jeq.transpose(1, 2), jineq.transpose(1, 2)]
+    row_s = [z(mi, n), dg(torch.where(ineq_mask, data.sigma_s.to(dt), one)), z(mi, me), s_coupling]
+    row_yeq = [jeq, z(me, mi), dg(torch.where(eq_mask, -c_reg, -one)), z(me, mi)]
+    row_yineq = [jineq, s_coupling, z(mi, me), dg(torch.where(ineq_mask, -c_reg, -one))]
+    rows = [row_x, row_s, row_yeq, row_yineq]
+    if n_link:
+        lr = link_rows.to(dt)
+        row_x.append(lr.transpose(1, 2))
+        row_s.append(z(mi, n_link))
+        row_yeq.append(z(me, n_link))
+        row_yineq.append(z(mi, n_link))
+        rows.append(
+            [lr, z(n_link, mi), z(n_link, me), z(n_link, mi),
+             dg(torch.where(link_mask > 0, -c_reg, -one))]
+        )
+    return torch.cat([torch.cat(r, dim=2) for r in rows], dim=1)

@@ -24,6 +24,17 @@ from parapint_tpu_torch.interfaces.structured import StructuredSCInterface
 F64 = torch.float64
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but CUDA is not available; "
+            "pass device='cpu' to build on the CPU"
+        )
+    return device
+
+
 @dataclasses.dataclass
 class DynamicModelSpec:
     """Uniform batched model family for a dynamic optimization problem.
@@ -32,7 +43,9 @@ class DynamicModelSpec:
     are torch functions of one block's variables x (n,) and parameters p (a
     dict of tensors); ``params`` holds them with a leading N axis.  ``x0``
     (N, n), bounds, masks and state indices as in the JAX package.  The
-    model's tensors and ``x0``/``params`` live on ``device``.
+    model's tensors and ``x0``/``params`` live on ``device``: the card by
+    default (pass ``device="cpu"`` for a CPU run); without CUDA the default
+    raises instead of building on the CPU.
     """
 
     num_blocks: int
@@ -56,11 +69,11 @@ class DynamicModelSpec:
     zu0: Optional[object] = None  # (N, n) upper bound duals
     lam0: Optional[object] = None  # (N, 2*num_states) link duals [bwd, fwd]
     c0: Optional[object] = None  # ((N-1)*num_states,) coupling values
-    device: object = "cpu"
+    device: object = "cuda"
 
     def __post_init__(self):
         N = self.num_blocks
-        self.device = torch.device(self.device)
+        self.device = require_device(self.device)
         dev = self.device
         self.x0 = torch.as_tensor(self.x0, dtype=F64, device=dev)
         if self.x0.dim() != 2 or self.x0.shape[0] != N:
@@ -124,14 +137,16 @@ class DynamicSchurComplementInteriorPointInterface(StructuredSCInterface):
     """Interface for dynamic problems (see module docstring).
 
     ``device`` defaults to the spec's device and must match it (the model
-    functions hold tensors there).  ``block_form="dense"`` is not ported yet.
+    functions hold tensors there).  ``block_form`` "dense" (the default)
+    assembles dense (N, nk, nk) blocks for ``SchurComplementSolver``;
+    "banded" assembles band stores for ``BandedSchurComplementSolver``.
     """
 
     def __init__(
         self,
         spec: DynamicModelSpec,
         kkt_dtype=None,
-        block_form: str = "banded",
+        block_form: str = "dense",
         device=None,
     ):
         device = spec.device if device is None else torch.device(device)

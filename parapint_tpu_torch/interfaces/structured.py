@@ -1,6 +1,5 @@
-"""Block-structured Schur-complement interior-point interface, banded mode
-(counterpart of ``parapint_tpu.interfaces.structured`` with
-``block_form="banded"``).
+"""Block-structured Schur-complement interior-point interface (counterpart
+of ``parapint_tpu.interfaces.structured``), in dense or banded block form.
 
 N uniform NLP blocks, a vector c of coupling variables, and per-block
 linear linking rows ``x_b[sel_j] - c[row_idx[b, j]] = 0`` whose dual rows
@@ -8,12 +7,16 @@ live inside the block's KKT block and whose coupling columns form the
 block-local border.  Per-block KKT layout: [x(n), s(mi), y_eq(me),
 y_ineq(mi), lambda(n_link)] (:func:`blocked.sub_kkt_layout`).
 
+Dense mode (the default) materializes each block's Hessian of the
+Lagrangian and constraint Jacobians and assembles dense (N, nk, nk) blocks
+with block-local borders (a ``LocalBlockKKT`` for ``SchurComplementSolver``).
 Banded mode assembles each per-block KKT as a symmetric band store under a
 host-computed permutation (``banded_symbolic.py``) by probing: 2p+1
 HVP/JVP/VJP sweeps per block, no Hessian or Jacobian is materialized.  The
-link selectors and the permuted border strips are built once as tensors on
-the interface's device.  Working vectors (rhs, residuals, convergence) are
-float64; the KKT matrix data is in ``kkt_dtype`` when one is given.
+link selectors and the border strips are built once as tensors on the
+interface's device.  Working vectors (rhs, residuals, convergence) are
+float64; the KKT matrix data (blocks, borders) is in ``kkt_dtype`` when one
+is given.
 """
 
 import numpy as np
@@ -27,9 +30,14 @@ from parapint_tpu_torch.interfaces.base import (
     IPState,
     map_leaf,
 )
-from parapint_tpu_torch.interfaces.blocked import selector_rows, sub_kkt_layout
+from parapint_tpu_torch.interfaces.blocked import (
+    BlockKKTData,
+    assemble_block_diag,
+    selector_rows,
+    sub_kkt_layout,
+)
 from parapint_tpu_torch.linalg.banded_schur import BandedLocalBlockKKT
-from parapint_tpu_torch.linalg.schur import BlockRhs
+from parapint_tpu_torch.linalg.schur import BlockRhs, LocalBlockKKT
 
 F64 = torch.float64
 
@@ -47,12 +55,8 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
       self.x0 (N, n) float64 initial primals
     """
 
-    def _finalize(self, kkt_dtype=None, block_form: str = "banded"):
-        if block_form == "dense":
-            raise NotImplementedError(
-                "block_form='dense' is not ported yet (ROADMAP A9); use 'banded'"
-            )
-        if block_form != "banded":
+    def _finalize(self, kkt_dtype=None, block_form: str = "dense"):
+        if block_form not in ("dense", "banded"):
             raise ValueError(f"unknown block_form {block_form!r}")
         if not self._chain_links:
             raise NotImplementedError("only the time-chain link topology is ported")
@@ -86,7 +90,17 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
             device=self.device,
         )
 
-        self._banded_setup()
+        kd = kkt_dtype or F64
+        self._link_rows_kkt = self.link_rows.to(kd)
+        if block_form == "banded":
+            self._banded_setup()
+        else:
+            # local border strips: row j holds -link_mask[b, j] at column
+            # off_lam + j (KKT-data dtype, as the banded strips)
+            L = self.n_link
+            border = torch.zeros((self.N, L, self.nk), dtype=kd, device=self.device)
+            border[:, torch.arange(L, device=self.device), self.off_lam + torch.arange(L, device=self.device)] = -self.link_mask.to(kd)
+            self._border_loc = border
 
         self.n_eq_real = int(self.eq_mask.sum()) + int(self.link_mask.sum())
         self.n_ineq_real = int(self.ineq_mask.sum())
@@ -122,7 +136,6 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         self._b_col_idx = as_i(plan.col_idx)
         self._b_row_idx = as_i(plan.row_idx)
         self._b_valid = as_k(plan.valid)
-        self._link_rows_kkt = self.link_rows.to(kd)
         # border strips with permuted columns: local border row j holds
         # -link_mask[b, j] at permuted column iperm[off_lam + j]
         N, L, nk = self.N, self.n_link, self.nk
@@ -146,9 +159,7 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         """Per-iteration banded KKT assembly by probing: (N, p+1, nk) lower
         bands of the permuted per-block KKTs at w_reg = c_reg = 0."""
         fns = self.fns
-        kd = self.kkt_dtype
-        cast = (lambda a: a) if kd is None else (lambda a: a.to(kd))
-        params = self._params_kkt
+        cast, params = self._kkt_cast()
         x = cast(state.primals["blocks"])
         yeq = cast(state.duals_eq["own"])
         yineq = cast(state.duals_ineq)
@@ -197,6 +208,11 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         return Yp[:, self._b_col_idx, self._b_row_idx] * self._b_valid
 
     # -- accessors -------------------------------------------------------------
+
+    @property
+    def border_loc(self) -> torch.Tensor:
+        """(N, n_link, nk) local border strips of the dense block form."""
+        return self._border_loc
 
     @property
     def n_duals_eq(self) -> int:
@@ -318,7 +334,13 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         ns = self.ns
         return (lam[: self.N - 1, ns:] + lam[1:, :ns]).reshape(self.ncv)
 
-    def _grad_lag_primals(self, state, grad_f, jtlam):
+    def _grad_lag_primals(self, state, grad_f, jtlam, jac_eq=None, jac_ineq=None):
+        """grad f + J^T y + link rows^T lam; ``jtlam`` None contracts the
+        materialized Jacobians instead (dense form without kkt_dtype)."""
+        if jtlam is None:
+            jtlam = (state.duals_eq["own"][:, None, :] @ jac_eq)[:, 0, :] + (
+                state.duals_ineq[:, None, :] @ jac_ineq
+            )[:, 0, :]
         lam = self._link_duals(state.duals_eq)
         return (
             self.obj_factor * grad_f
@@ -340,41 +362,79 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
 
     # -- shared AD evaluation ----------------------------------------------------
 
+    def _kkt_cast(self):
+        """(cast to kkt_dtype, parameters in kkt_dtype)."""
+        kd = self.kkt_dtype
+        if kd is None:
+            return (lambda a: a), self.params
+        return (lambda a: a.to(kd) if a.is_floating_point() else a), self._params_kkt
+
+    def _eval_hess(self, state):
+        """(N, n, n) Hessians of the Lagrangian, in ``kkt_dtype`` when set:
+        the Hessian enters only the KKT matrix, never the float64 rhs or
+        convergence numbers."""
+        cast, params = self._kkt_cast()
+        x = cast(state.primals["blocks"])
+        obf = torch.full((self.N,), self.obj_factor, dtype=x.dtype, device=x.device)
+        return self.fns.hess_lag(
+            x, cast(state.duals_eq["own"]), cast(state.duals_ineq), obf, params,
+            self.x_mask, self.eq_mask, self.ineq_mask,
+        )
+
+    def _eval_jacs(self, state):
+        """Materialized constraint Jacobians, in ``kkt_dtype`` when set (the
+        float64 dual contraction then comes from :meth:`_jtprod`)."""
+        cast, params = self._kkt_cast()
+        args = (cast(state.primals["blocks"]), params, self.x_mask)
+        return self.fns.jac_eq(*args, self.eq_mask), self.fns.jac_ineq(*args, self.ineq_mask)
+
     def eval_ad(self, state):
         """One AD sweep per iteration: every derivative quantity that both
-        the convergence check and the KKT assembly need."""
+        the convergence check and the KKT assembly need.  Banded mode
+        probes the KKT later (kkt_from_ad) and always needs the exact J^T y;
+        dense mode materializes the Hessian and Jacobians, and contracts the
+        duals through them unless they are in reduced precision."""
         fns = self.fns
         args = (state.primals["blocks"], self.params, self.x_mask)
-        return dict(
+        out = dict(
             obj=fns.total_objective(*args),
             grad_f=fns.grad_f(*args),
-            jtlam=self._jtprod(state),
             c_eq=fns.c_eq(*args, self.eq_mask),
             c_ineq=fns.c_ineq(*args, self.ineq_mask),
+            jac_eq=None,
+            jac_ineq=None,
+            hess=None,
         )
+        if self.block_form == "banded":
+            out["jtlam"] = self._jtprod(state)
+            return out
+        out["jac_eq"], out["jac_ineq"] = self._eval_jacs(state)
+        out["jtlam"] = self._jtprod(state) if self.kkt_dtype is not None else None
+        out["hess"] = self._eval_hess(state)
+        return out
 
     def convergence_from_ad(self, state, ad, barrier, error_scaling):
         return self._convergence_core(
             state, self.bounds, ad["obj"], ad["grad_f"], ad["jtlam"],
             ad["c_eq"], ad["c_ineq"], barrier, error_scaling,
+            jac_eq=ad["jac_eq"], jac_ineq=ad["jac_ineq"],
         )
 
     def kkt_from_ad(self, state, ad, barrier):
-        return self._kkt_core_banded(
-            state, self.bounds, ad["grad_f"], ad["jtlam"], ad["c_eq"], ad["c_ineq"], barrier
-        )
+        return self._kkt_core(state, self.bounds, ad, barrier)
 
     # -- convergence -------------------------------------------------------------
 
     def _convergence_core(
-        self, state, bounds, obj, grad_f, jtlam, c_eq, c_ineq, barrier, error_scaling
+        self, state, bounds, obj, grad_f, jtlam, c_eq, c_ineq, barrier, error_scaling,
+        jac_eq=None, jac_ineq=None,
     ):
         x = state.primals["blocks"]
         c = state.primals["coupling"]
         ineq_resid = c_ineq - state.slacks
         link_resid = self._link_resid(x, c)
         glp_blocks = (
-            self._grad_lag_primals(state, grad_f, jtlam)
+            self._grad_lag_primals(state, grad_f, jtlam, jac_eq, jac_ineq)
             - state.duals_primals_lb["blocks"]
             + state.duals_primals_ub["blocks"]
         )
@@ -433,9 +493,10 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
     def eval_kkt_data(self, state, barrier):
         return self.kkt_from_ad(state, self.eval_ad(state), barrier)
 
-    def _kkt_core_banded(self, state, bounds, grad_f, jtlam, c_eq, c_ineq, barrier):
-        """(band store, rhs): matrix data is the (N, p+1, nk) band store in
-        ``kkt_dtype``; the rhs is float64 from the exact VJP contraction."""
+    def _kkt_core(self, state, bounds, ad, barrier):
+        """(matrix data, rhs): the (N, p+1, nk) band store (banded) or the
+        BlockKKTData of Hessians, Jacobians and barrier diagonals (dense), in
+        ``kkt_dtype``; the rhs is float64."""
         x = state.primals["blocks"]
         c = state.primals["coupling"]
         s = state.slacks
@@ -446,9 +507,21 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         sigma_s = base.barrier_hessian_diag(
             s, bounds.gl, bounds.gu, state.duals_slacks_lb, state.duals_slacks_ub
         )
-        data = self._banded_bands0(state, sigma_x, sigma_s)
+        if self.block_form == "banded":
+            data = self._banded_bands0(state, sigma_x, sigma_s)
+        else:
+            kd = self.kkt_dtype
+            mcast = (lambda a: a) if kd is None else (lambda a: a.to(kd))
+            data = BlockKKTData(
+                hess=mcast(ad["hess"]),
+                jac_eq=mcast(ad["jac_eq"]),
+                jac_ineq=mcast(ad["jac_ineq"]),
+                sigma_x=mcast(sigma_x),
+                sigma_s=mcast(sigma_s),
+            )
+        c_eq, c_ineq = ad["c_eq"], ad["c_ineq"]
         rhs_x = -(
-            self._grad_lag_primals(state, grad_f, jtlam)
+            self._grad_lag_primals(state, ad["grad_f"], ad["jtlam"], ad["jac_eq"], ad["jac_ineq"])
             + base.barrier_grad_term(x, xl, xu, barrier)
         )
         rhs_s = -(-state.duals_ineq + base.barrier_grad_term(s, bounds.gl, bounds.gu, barrier))
@@ -460,11 +533,26 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         )
         return data, rhs
 
-    def assemble_kkt(self, data_and_rhs, w_reg, c_reg) -> BandedLocalBlockKKT:
-        """Banded KKT with regularization: ``w_reg`` adds to the real
-        x-variable diagonals, ``c_reg`` sets the real constraint diagonals
-        to -c_reg, and the coupling block is Q = c_reg * I."""
+    def assemble_kkt(self, data_and_rhs, w_reg, c_reg):
+        """KKT with regularization: ``w_reg`` adds to the real x-variable
+        diagonals, ``c_reg`` sets the real constraint diagonals to -c_reg,
+        and the coupling block is Q = c_reg * I.  A ``LocalBlockKKT``
+        (dense) or a ``BandedLocalBlockKKT`` (banded)."""
         data = data_and_rhs[0]
+        if self.block_form == "dense":
+            diag = assemble_block_diag(
+                data, self.eq_mask, self.ineq_mask, self.x_mask,
+                self.link_rows, self.link_mask, w_reg, c_reg,
+            )
+            dt = diag.dtype
+            c_reg = torch.as_tensor(c_reg, dtype=dt, device=diag.device)
+            return LocalBlockKKT.make(
+                diag=diag,
+                border_loc=self._border_loc,
+                row_idx=self.row_idx,
+                q=c_reg * torch.eye(self.ncv, dtype=dt, device=diag.device),
+                assembly=self.sc_assembly,
+            )
         dt = data.dtype
         w_reg = torch.as_tensor(w_reg, dtype=dt, device=data.device)
         c_reg = torch.as_tensor(c_reg, dtype=dt, device=data.device)

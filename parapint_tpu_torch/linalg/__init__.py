@@ -1,9 +1,17 @@
-"""Linear solver layer: the banded Schur-complement solver and the
-cyclic-reduction coupling solver."""
+"""Linear solver layer: the Schur-complement solvers (dense-block and
+banded), the dense LDL^T / LU solvers and the cyclic-reduction coupling
+solver."""
 
 from parapint_tpu_torch.linalg.results import LinearSolverResults, LinearSolverStatus
 from parapint_tpu_torch.linalg.base import LinearSolver
-from parapint_tpu_torch.linalg.schur import BlockRhs
+from parapint_tpu_torch.linalg.dense import DenseLDLSolver, DenseLUSolver
+from parapint_tpu_torch.linalg.schur import (
+    BlockKKT,
+    BlockRhs,
+    LocalBlockKKT,
+    SchurComplementSolver,
+    pad_block_count,
+)
 from parapint_tpu_torch.linalg.tridiag import BlockTridiag, BlockTridiagSolver
 from parapint_tpu_torch.linalg.banded_schur import (
     BandedLocalBlockKKT,
@@ -14,7 +22,13 @@ __all__ = [
     "LinearSolverStatus",
     "LinearSolverResults",
     "LinearSolver",
+    "DenseLDLSolver",
+    "DenseLUSolver",
+    "BlockKKT",
     "BlockRhs",
+    "LocalBlockKKT",
+    "SchurComplementSolver",
+    "pad_block_count",
     "BlockTridiag",
     "BlockTridiagSolver",
     "BandedLocalBlockKKT",

@@ -19,8 +19,11 @@ import numpy as np
 import torch
 
 from parapint_tpu_torch.linalg.base import LinearSolver
+from parapint_tpu_torch.linalg.dense import DenseLDLSolver
 from parapint_tpu_torch.linalg.results import LinearSolverResults, LinearSolverStatus
 from parapint_tpu_torch.linalg.schur import (
+    REFINE_MAX_PASSES,
+    REFINE_TRIGGER,
     BlockRhs,
     _assemble_sc,
     _border_apply_chain,
@@ -42,10 +45,6 @@ from parapint_tpu_torch.ops.banded import pad_sym_band, sym_band_to_tridiag_tile
 
 # panel width of the tile factorizations (a 128-wide tile is two panels)
 TILE_BLOCK_SIZE = 64
-# adaptive refinement: passes run while the float32 residual exceeds
-# REFINE_TRIGGER * ||rhs|| (and the noise floor), at most REFINE_MAX_PASSES
-REFINE_TRIGGER = 1e-5
-REFINE_MAX_PASSES = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,7 +200,8 @@ class BandedSchurComplementSolver(LinearSolver):
 
     Consumes a :class:`BandedLocalBlockKKT`; rhs and solutions use the
     ORIGINAL variable ordering (:class:`BlockRhs`), the permutation is
-    applied internally by index gathers.  ``n_numeric`` counts numeric
+    applied internally by index gathers.  The coupling solver defaults to
+    ``DenseLDLSolver(refine_steps=0)``.  ``n_numeric`` counts numeric
     factorizations.
     """
 
@@ -211,13 +211,11 @@ class BandedSchurComplementSolver(LinearSolver):
         tile_size: Optional[int] = None,
         device=None,
     ):
-        if schur_complement_solver is None:
-            raise NotImplementedError(
-                "the dense coupling solver (DenseLDLSolver) is not ported yet "
-                "(ROADMAP A10); pass schur_complement_solver="
-                "BlockTridiagSolver(ns=...)"
-            )
-        self.sc_solver = schur_complement_solver
+        self.sc_solver = (
+            schur_complement_solver
+            if schur_complement_solver is not None
+            else DenseLDLSolver(refine_steps=0)
+        )
         self.tile_size = tile_size
         self.device = None if device is None else torch.device(device)
         self.n_numeric = 0

@@ -1,26 +1,57 @@
-"""Schur-complement building blocks shared by the block-bordered solvers.
+"""Explicit Schur-complement solver for block-bordered-diagonal KKT systems
+(counterpart of ``parapint_tpu.linalg.schur``).
 
-The subset of ``parapint_tpu.linalg.schur`` that the banded Schur solver
-runs: the rhs container, the batched block factorization with inertia, the
-chain-topology SC tile assembly and the border applications.  The system is
+Solves the symmetric system
 
     [ K_0            A_0^T ] [x_0]   [b_0]
     [      ...        ...  ] [...] = [...]
     [          K_N-1 A_N-1^T] [x_N-1] [b_N-1]
     [ A_0 ... A_N-1    Q   ] [y  ]   [b_c]
 
-with each border A_i stored as a block-local (L, nk) strip whose rows map to
-global coupling rows through ``row_idx`` (dump index nc for masked rows), or
-positionally for the time-chain topology ("chain": rows [0, ns) couple
-group i-1, rows [ns, 2ns) group i).
+via S = Q - sum_i A_i K_i^{-1} A_i^T: all diagonal blocks are factored in one
+batched LDL^T, S is formed with batched matmuls and factored by a coupling
+solver, and x_i = K_i^{-1}(b_i - A_i^T y) with
+y = S^{-1}(b_c - sum_i A_i K_i^{-1} b_i).
+
+Borders are dense (``BlockKKT``: (N, nc, nk)) or block-local
+(``LocalBlockKKT``: an (L, nk) strip per block whose rows map to global
+coupling rows through ``row_idx``, dump index nc for masked rows, or
+positionally for the time-chain topology: rows [0, ns) couple group i-1,
+rows [ns, 2ns) group i).  Blocks are uniform; a per-block ``mask`` marks
+padding blocks, which factor as identities and are excluded from the
+inertia.
+
+Two block factorizations: packed LDL^T (``explicit_inverse=False``, panels on
+the ``ldl_panels_slab`` kernel entry) and the W form (K_i^{-1} =
+s W^T D^{-1} W s of the Ruiz-equilibrated blocks, panels on
+``ldl_panels_slab_winv``, applies on the ``winv_apply_fused`` kernel).
 """
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
-from parapint_tpu_torch.linalg.results import LinearSolverStatus
-from parapint_tpu_torch.ops.ldl import ldl_factor_winv_batched, ldl_inertia, ruiz_scale
+from parapint_tpu_torch.linalg.base import LinearSolver
+from parapint_tpu_torch.linalg.dense import DenseLDLSolver
+from parapint_tpu_torch.linalg.results import LinearSolverResults, LinearSolverStatus
+from parapint_tpu_torch.ops.ldl import (
+    ldl_factor_batched,
+    ldl_factor_winv_batched,
+    ldl_inertia,
+    ldl_solve,
+    ldl_winv,
+    ruiz_scale,
+)
+from parapint_tpu_torch.ops.winv_apply import winv_apply_fused, winv_apply_plain
+
+# adaptive refinement: passes run while the float32 residual exceeds
+# REFINE_TRIGGER * ||rhs|| (and the probe's noise floor), at most
+# REFINE_MAX_PASSES of them
+REFINE_TRIGGER = 1e-5
+REFINE_MAX_PASSES = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +60,104 @@ class BlockRhs:
 
     blocks: torch.Tensor
     coupling: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockKKT:
+    """Dense borders: diag (N, nk, nk), border (N, nc, nk), q (nc, nc),
+    mask (N,) (1.0 for logical blocks, 0.0 for padding)."""
+
+    diag: torch.Tensor
+    border: torch.Tensor
+    q: torch.Tensor
+    mask: torch.Tensor
+
+    @staticmethod
+    def make(diag, border, q, mask=None) -> "BlockKKT":
+        if mask is None:
+            mask = torch.ones(diag.shape[0], dtype=diag.dtype, device=diag.device)
+        return BlockKKT(diag=diag, border=border, q=q, mask=mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalBlockKKT:
+    """Block-local borders: diag (N, nk, nk), border_loc (N, L, nk) (masked
+    rows all-zero), row_idx (N, L) global coupling row of each local row
+    (nc = dump), q (nc, nc), mask (N,).  ``assembly`` is the SC topology:
+    "scatter" (any), "shared" (row_idx == arange(L) for every block) or
+    "chain" (L = 2 ns, block i couples groups i-1 and i)."""
+
+    diag: torch.Tensor
+    border_loc: torch.Tensor
+    row_idx: torch.Tensor
+    q: torch.Tensor
+    mask: torch.Tensor
+    assembly: str = "scatter"
+
+    @staticmethod
+    def make(diag, border_loc, row_idx, q, mask=None, assembly="scatter") -> "LocalBlockKKT":
+        if mask is None:
+            mask = torch.ones(diag.shape[0], dtype=diag.dtype, device=diag.device)
+        return LocalBlockKKT(
+            diag=diag,
+            border_loc=border_loc,
+            row_idx=torch.as_tensor(row_idx, dtype=torch.int64, device=diag.device),
+            q=q,
+            mask=mask,
+            assembly=assembly,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SchurFactor:
+    block_LD: Optional[torch.Tensor]  # (N, npad, npad) packed factors (LD mode)
+    block_W: Optional[torch.Tensor]  # (N, npad, npad) L^{-1}, W mode (maybe bf16)
+    block_d: Optional[torch.Tensor]  # (N, npad) pivots, W mode
+    block_s: Optional[torch.Tensor]  # (N, nk) Ruiz scaling, W mode
+    diag: Optional[torch.Tensor]  # original blocks, kept for refinement
+    q: Optional[torch.Tensor]  # original coupling block, kept for refinement
+    border: Optional[torch.Tensor]  # (N, nc, nk), dense-border path
+    border_loc: Optional[torch.Tensor]  # (N, L, nk), local-border path
+    row_idx: Optional[torch.Tensor]  # (N, L), local-border path
+    sc_fact: object  # factorization of the coupling solver
+    inertia: torch.Tensor  # (3,) int32, blocks + SC
+    status: torch.Tensor  # () int32
+    nk: int
+    nc: int
+    assembly: str = "scatter"
+    # full-precision W kept beside a reduced-storage block_W when the bf16
+    # auto-gate is on: a stalled adaptive refinement retries with it
+    block_W_hi: Optional[torch.Tensor] = None
+
+
+def pad_block_count(kkt, multiple: int):
+    """Pad a Block/LocalBlockKKT to a multiple of ``multiple`` blocks with
+    masked identity blocks and zero borders (local rows at the dump index).
+    A padded chain KKT falls back to ``assembly="scatter"``: the chain path
+    places contributions by block position and padding blocks past the last
+    group would land on real groups."""
+    N = kkt.diag.shape[0]
+    rem = (-N) % multiple
+    if rem == 0:
+        return kkt
+    nk = kkt.diag.shape[-1]
+    dev, dt = kkt.diag.device, kkt.diag.dtype
+    eye = torch.eye(nk, dtype=dt, device=dev).expand(rem, nk, nk)
+    diag = torch.cat([kkt.diag, eye], dim=0)
+    mask = torch.cat([kkt.mask, kkt.mask.new_zeros(rem)])
+    nc = kkt.q.shape[-1]
+    if isinstance(kkt, LocalBlockKKT):
+        L = kkt.border_loc.shape[1]
+        return LocalBlockKKT(
+            diag=diag,
+            border_loc=torch.cat([kkt.border_loc, kkt.border_loc.new_zeros((rem, L, nk))]),
+            row_idx=torch.cat([kkt.row_idx, kkt.row_idx.new_full((rem, L), nc)]),
+            q=kkt.q,
+            mask=mask,
+            assembly="scatter" if kkt.assembly == "chain" else kkt.assembly,
+        )
+    border = torch.cat([kkt.border, kkt.border.new_zeros((rem, nc, nk))])
+    return BlockKKT(diag=diag, border=border, q=kkt.q, mask=mask)
 
 
 def _inertia_status(d: torch.Tensor, nk: int, mask: torch.Tensor):
@@ -49,17 +178,84 @@ def _inertia_status(d: torch.Tensor, nk: int, mask: torch.Tensor):
     return inertia, status
 
 
-def _factor_blocks_winv(diag, mask, block_size: int):
+def _factor_blocks(diag, mask, block_size: int):
+    """Batched packed LDL^T of the diagonal blocks + inertia/status."""
+    LD, d = ldl_factor_batched(diag, block_size=block_size)
+    inertia, status = _inertia_status(d, diag.shape[-1], mask)
+    return LD, inertia, status
+
+
+def _factor_blocks_winv(diag, mask, block_size: int, factor_dtype=None, apply_dtype=None):
     """Batched LDL^T of Ruiz-equilibrated blocks: returns (W, d, s, inertia,
     status) with K_i^{-1} = s W^T D^{-1} W s.  Equilibration keeps a
     lower-precision factorization's pivot signs — hence the inertia — intact
-    despite the KKT's barrier-term dynamic range."""
+    despite the KKT's barrier-term dynamic range.
+
+    ``apply_dtype`` enables the hybrid path: the pivot sweep runs in
+    ``factor_dtype`` (inertia at that fidelity), then the factor is cast down
+    and W is built and applied in ``apply_dtype``; refinement removes the
+    cast's O(eps) solve error."""
     nk = diag.shape[-1]
+    if factor_dtype is not None:
+        diag = diag.to(factor_dtype)
     s = ruiz_scale(diag)  # (N, nk)
     diag = diag * s[:, :, None] * s[:, None, :]
-    LD, d, W = ldl_factor_winv_batched(diag, block_size=block_size)
-    inertia, status = _inertia_status(d, nk, mask)
+    if apply_dtype is None or apply_dtype == diag.dtype:
+        LD, d, W = ldl_factor_winv_batched(diag, block_size=block_size)
+        inertia, status = _inertia_status(d, nk, mask)
+        return W, d, s, inertia, status
+    LD, inertia, status = _factor_blocks(diag, mask, block_size)
+    LD = LD.to(apply_dtype)
+    s = s.to(apply_dtype)
+    W, d = ldl_winv(LD, min(block_size, LD.shape[-1]))
     return W, d, s, inertia, status
+
+
+def _winv_apply_batched(W, d, s, b):
+    """K_i^{-1} b_i for a batch: b (N, nk) -> (N, nk).  An f32 or bf16 W
+    goes to the ``winv_apply_fused`` kernel entry (one pass over W); an f64 W
+    takes the two-GEMV form, as the reference's XLA path does."""
+    if W.dtype in (torch.float32, torch.bfloat16):
+        f32 = torch.float32
+        c = lambda t: t.to(f32).contiguous()
+        return winv_apply_fused(W.contiguous(), c(d), c(s), c(b))
+    return winv_apply_plain(W, d, s, b)
+
+
+def _winv_multi(W, d, s, A_cols):
+    """U = W (s * A_cols) and S = U^T D^{-1} U per block (A K^{-1} A^T in
+    scaled symmetric W form); A_cols (N, nk, L) -> S (N, L, L)."""
+    nk = A_cols.shape[1]
+    npad = W.shape[-1]
+    Af = A_cols.to(W.dtype) * s[:, :, None]
+    if npad != nk:
+        Af = torch.nn.functional.pad(Af, (0, 0, 0, npad - nk))
+    U = W @ Af
+    d_safe = torch.where(d.abs() > 0, d, torch.ones_like(d))
+    return U.transpose(1, 2) @ (U / d_safe[:, :, None])
+
+
+def _local_solve_products(LD, border_loc):
+    """A_i K_i^{-1} A_i^T per block in packed-LDL mode: (N, L, L)."""
+    V = ldl_solve(LD, border_loc.transpose(1, 2))  # (N, nk, L)
+    return border_loc.to(V.dtype) @ V
+
+
+def _sc_contribution(LD, border, mask):
+    """sum_i A_i K_i^{-1} A_i^T over the batch (dense borders, LD mode)."""
+    S = _local_solve_products(LD, border)
+    return torch.einsum("bck,b->ck", S, mask.to(S.dtype))
+
+
+def _form_sc(LD, border, q, mask):
+    """S = Q - sum_i A_i K_i^{-1} A_i^T, all blocks batched."""
+    return q - _sc_contribution(LD, border, mask)
+
+
+def _sc_contribution_winv(W, d, s, border, mask):
+    """W-mode dense-border SC contribution: all matmuls."""
+    S = _winv_multi(W, d, s, border.transpose(1, 2))  # (N, nc, nc)
+    return torch.einsum("bck,b->ck", S, mask.to(S.dtype))
 
 
 def _scatter_sc(S_loc, row_idx, nc: int):
@@ -117,6 +313,41 @@ def _assemble_sc(S_loc, row_idx, nc: int, assembly: str):
     return _scatter_sc(S_loc, row_idx, nc)
 
 
+def _sc_contribution_local(LD, border_loc, row_idx, nc: int, assembly: str = "scatter"):
+    """sum_i P_i (A_i K_i^{-1} A_i^T) P_i^T, packed-LDL mode."""
+    return _assemble_sc(_local_solve_products(LD, border_loc), row_idx, nc, assembly)
+
+
+def _sc_contribution_local_winv(W, d, s, border_loc, row_idx, nc: int, assembly: str = "scatter"):
+    """W-mode local-border SC contribution: all matmuls + assembly."""
+    S_loc = _winv_multi(W, d, s, border_loc.transpose(1, 2))
+    return _assemble_sc(S_loc, row_idx, nc, assembly)
+
+
+def _sc_tiles_local_winv(W, d, s, border_loc, nc: int):
+    """Chain-topology SC contribution in tile form (W mode)."""
+    return _chain_tiles(_winv_multi(W, d, s, border_loc.transpose(1, 2)), nc)
+
+
+def _sc_tiles_local(LD, border_loc, nc: int):
+    """Chain-topology SC contribution in tile form (packed-LDL mode)."""
+    return _chain_tiles(_local_solve_products(LD, border_loc), nc)
+
+
+def _tridiag_sc_capable(sc_solver, kkt) -> bool:
+    """True when the coupling solve can stay in block-tridiagonal tile form:
+    chain topology + a tile-form-capable SC solver."""
+    from parapint_tpu_torch.linalg.tridiag import BlockTridiagSolver
+
+    if not isinstance(sc_solver, BlockTridiagSolver):
+        return False
+    if not isinstance(kkt, LocalBlockKKT) or kkt.assembly != "chain":
+        return False
+    ns = kkt.border_loc.shape[1] // 2
+    nc = kkt.q.shape[-1]
+    return ns > 0 and nc > 0 and nc % ns == 0
+
+
 def _border_apply_local(border_loc, row_idx, v, nc: int):
     """sum_i P_i A_i v_i -> (nc,)"""
     contrib = (border_loc.to(v.dtype) @ v[:, :, None])[..., 0]
@@ -169,3 +400,295 @@ def _border_T_apply_chain(border_loc, y):
     Nb, L, _ = border_loc.shape
     y_loc = _border_y_loc_chain(y, Nb, L)
     return (y_loc[:, None, :] @ border_loc.to(y.dtype))[:, 0, :]
+
+
+def _kkt_matvec(fact: SchurFactor, x: BlockRhs, dtype=None) -> BlockRhs:
+    """K @ x for the full block-bordered system (iterative refinement).
+    With ``dtype`` every operand is cast first (the cheap residual probe)."""
+    diag, q = fact.diag, fact.q
+    xb, xc = x.blocks, x.coupling
+    border, border_loc = fact.border, fact.border_loc
+    if dtype is not None:
+        cast = lambda t: None if t is None else t.to(dtype)
+        diag, q, xb, xc, border, border_loc = map(cast, (diag, q, xb, xc, border, border_loc))
+    bx = (diag.to(xb.dtype) @ xb[:, :, None])[..., 0]
+    if _chain_border_ok(fact.assembly, border_loc, fact.nc):
+        bx = bx + _border_T_apply_chain(border_loc, xc)
+        cy = _border_apply_chain(border_loc, xb, fact.nc)
+    elif border_loc is not None:
+        bx = bx + _border_T_apply_local(border_loc, fact.row_idx, xc)
+        cy = _border_apply_local(border_loc, fact.row_idx, xb, fact.nc)
+    else:
+        bd = border.to(xb.dtype)
+        bx = bx + torch.einsum("bci,c->bi", bd, xc.to(xb.dtype))
+        cy = torch.einsum("bci,bi->c", bd, xb)
+    cy = cy + q.to(cy.dtype) @ xc.to(cy.dtype)
+    return BlockRhs(blocks=bx, coupling=cy)
+
+
+def _refine_probe(fact: SchurFactor, rhs: BlockRhs, x: BlockRhs, trigger: float) -> torch.Tensor:
+    """Device bool: the f32 residual ||rhs - K x|| exceeds both trigger *
+    max(1, ||rhs||) and the probe's own floor, 32 eps_f32 ||(|K| |x|)||.
+    The matvecs run in f32, the norms in the rhs dtype (squares of f32
+    values overflow); a non-finite residual counts as failure."""
+    rn2, thresh = _refine_residual(fact, rhs, x, trigger)
+    return ~torch.isfinite(rn2) | (rn2 > thresh)
+
+
+def _refine_residual(fact: SchurFactor, rhs: BlockRhs, x: BlockRhs, trigger: float):
+    """(squared residual norm, squared threshold) of :func:`_refine_probe`."""
+    f32 = torch.float32
+    kx = _kkt_matvec(fact, x, dtype=f32)
+    absf = lambda t: None if t is None else t.abs()
+    afact = dataclasses.replace(
+        fact, diag=fact.diag.abs(), q=fact.q.abs(),
+        border=absf(fact.border), border_loc=absf(fact.border_loc),
+    )
+    kabs = _kkt_matvec(afact, BlockRhs(x.blocks.abs(), x.coupling.abs()), dtype=f32)
+    wd = rhs.blocks.dtype
+    rb = rhs.blocks.to(f32).to(wd) - kx.blocks.to(wd)
+    rc = rhs.coupling.to(f32).to(wd) - kx.coupling.to(wd)
+    rn2 = (rb * rb).sum() + (rc * rc).sum()
+    bn2 = rhs.blocks.to(wd).square().sum() + rhs.coupling.to(wd).square().sum()
+    fn2 = kabs.blocks.to(wd).square().sum() + kabs.coupling.to(wd).square().sum()
+    eps = 32.0 * float(np.finfo(np.float32).eps)
+    thresh = torch.maximum((trigger * trigger) * torch.clamp(bn2, min=1.0), (eps * eps) * fn2)
+    return rn2, thresh
+
+
+class SchurComplementSolver(LinearSolver):
+    """Serial Schur-complement solver over :class:`BlockKKT` /
+    :class:`LocalBlockKKT`, composed with any coupling solver (default
+    ``DenseLDLSolver``; ``BlockTridiagSolver`` keeps a chain SC in tile
+    form).
+
+    ``explicit_inverse``: W form (else packed LDL^T); ``factor_dtype``: the
+    blocks' factor dtype; ``apply_dtype``: hybrid precision (see
+    :func:`_factor_blocks_winv`); ``refine_steps``: None = adaptive
+    refinement (an f32 residual probe decides each f64 pass, at most
+    REFINE_MAX_PASSES), an int = that many fixed passes;
+    ``w_store_dtype`` (e.g. torch.bfloat16): store W for the back solves in
+    this dtype (the SC is formed from the full W); ``w_auto_gate``: with
+    ``w_store_dtype`` and adaptive refinement, keep the full W and retry a
+    stalled solve with it.  Only exact zero pivots count as zero.
+    ``n_numeric`` counts numeric factorizations,
+    ``n_solves`` back solves through the Schur complement (two block
+    applies each) and ``n_gate_fallbacks`` the retries on the full W.
+    """
+
+    def __init__(
+        self,
+        schur_complement_solver: Optional[LinearSolver] = None,
+        block_size: int = 128,
+        explicit_inverse: bool = False,
+        refine_steps: Optional[int] = None,
+        factor_dtype=None,
+        apply_dtype=None,
+        w_store_dtype=None,
+        w_auto_gate: bool = True,
+    ):
+        self.sc_solver = (
+            schur_complement_solver
+            if schur_complement_solver is not None
+            else DenseLDLSolver(
+                block_size=block_size,
+                explicit_inverse=explicit_inverse,
+                # the SC is formed in factor_dtype already; the global
+                # refinement covers it
+                refine_steps=0,
+            )
+        )
+        self.block_size = block_size
+        self.explicit_inverse = explicit_inverse
+        self.factor_dtype = factor_dtype
+        self.apply_dtype = apply_dtype
+        self.w_store_dtype = w_store_dtype
+        self.w_auto_gate = w_auto_gate
+        self.adaptive_refine = refine_steps is None
+        self.refine_steps = 1 if refine_steps is None else refine_steps
+        self.n_numeric = 0
+        self.n_solves = 0
+        self.n_gate_fallbacks = 0
+
+    def symbolic(self, kkt) -> LinearSolverResults:
+        N, nk, nk2 = kkt.diag.shape
+        if nk != nk2:
+            raise ValueError(f"diagonal blocks are not square: {tuple(kkt.diag.shape)}")
+        nc = kkt.q.shape[-1]
+        if isinstance(kkt, LocalBlockKKT):
+            if kkt.border_loc.shape[0] != N or kkt.border_loc.shape[2] != nk:
+                raise ValueError(
+                    f"border_loc shape {tuple(kkt.border_loc.shape)} inconsistent "
+                    f"with diag {tuple(kkt.diag.shape)}"
+                )
+            if tuple(kkt.row_idx.shape) != tuple(kkt.border_loc.shape[:2]):
+                raise ValueError("row_idx must be (N, L)")
+        elif tuple(kkt.border.shape) != (N, nc, nk):
+            raise ValueError(
+                f"border shape {tuple(kkt.border.shape)} inconsistent with "
+                f"diag {tuple(kkt.diag.shape)} and q {tuple(kkt.q.shape)}"
+            )
+        return LinearSolverResults(status=LinearSolverStatus.successful)
+
+    def numeric(self, kkt) -> SchurFactor:
+        from parapint_tpu_torch.linalg.tridiag import BlockTridiag, extract_tridiag
+
+        self.n_numeric += 1
+        nk = kkt.diag.shape[-1]
+        nc = kkt.q.shape[-1]
+        local = isinstance(kkt, LocalBlockKKT)
+        tridiag = _tridiag_sc_capable(self.sc_solver, kkt)
+        ns = kkt.border_loc.shape[1] // 2 if local else 0
+        border = kkt.border_loc if local else kkt.border
+        # phase labels: the reference solver's named scopes
+        if self.explicit_inverse:
+            with record_function("sc_solver.factor_blocks"):
+                W, d, s, blk_inertia, blk_status = _factor_blocks_winv(
+                    kkt.diag, kkt.mask, self.block_size, self.factor_dtype, self.apply_dtype
+                )
+            LD = None
+            with record_function("sc_solver.form_sc"):
+                if tridiag:
+                    dt_c, ut_full = _sc_tiles_local_winv(W, d, s, border, nc)
+                    q_tri = extract_tridiag(kkt.q.to(W.dtype), ns)
+                    sc = BlockTridiag(diag=q_tri.diag - dt_c, upper=q_tri.upper - ut_full[:-1])
+                elif local:
+                    contrib = _sc_contribution_local_winv(
+                        W, d, s, border, kkt.row_idx, nc, kkt.assembly
+                    )
+                    sc = kkt.q.to(W.dtype) - contrib
+                else:
+                    sc = kkt.q.to(W.dtype) - _sc_contribution_winv(W, d, s, border, kkt.mask)
+            W_hi = None
+            if self.w_store_dtype is not None:
+                if self.w_auto_gate and self.adaptive_refine:
+                    W_hi = W
+                W = W.to(self.w_store_dtype)
+        else:
+            W = d = s = W_hi = None
+            with record_function("sc_solver.factor_blocks"):
+                LD, blk_inertia, blk_status = _factor_blocks(kkt.diag, kkt.mask, self.block_size)
+            if self.apply_dtype is not None and LD.dtype != self.apply_dtype:
+                # hybrid precision, LD form: pivots/inertia from the
+                # factor-dtype sweep, solves in apply_dtype (no equilibration)
+                LD = LD.to(self.apply_dtype)
+            with record_function("sc_solver.form_sc"):
+                if tridiag:
+                    dt_c, ut_full = _sc_tiles_local(LD, border, nc)
+                    q_tri = extract_tridiag(kkt.q, ns)
+                    sc = BlockTridiag(diag=q_tri.diag - dt_c, upper=q_tri.upper - ut_full[:-1])
+                elif local:
+                    sc = kkt.q - _sc_contribution_local(LD, border, kkt.row_idx, nc, kkt.assembly)
+                else:
+                    sc = _form_sc(LD, border, kkt.q, kkt.mask)
+        with record_function("sc_solver.factor_sc"):
+            sc_fact = self.sc_solver.numeric(sc)
+        sc_pos, sc_neg, sc_zero = self.sc_solver.inertia(sc_fact)
+        inertia = blk_inertia + torch.stack([sc_pos, sc_neg, sc_zero]).to(torch.int32)
+        status = torch.maximum(blk_status, self.sc_solver.status(sc_fact))
+        keep = self.refine_steps > 0
+        return SchurFactor(
+            block_LD=LD,
+            block_W=W,
+            block_W_hi=W_hi,
+            block_d=d,
+            block_s=s,
+            diag=kkt.diag if keep else None,
+            q=kkt.q if keep else None,
+            border=None if local else kkt.border,
+            border_loc=kkt.border_loc if local else None,
+            row_idx=kkt.row_idx if local else None,
+            sc_fact=sc_fact,
+            inertia=inertia,
+            status=status,
+            nk=nk,
+            nc=nc,
+            assembly=kkt.assembly if local else "scatter",
+        )
+
+    def _apply_blocks(self, fact: SchurFactor, b, hi: bool = False):
+        """K_i^{-1} b_i for every block, in the factor's dtype.  ``hi``: the
+        full-precision W (bf16 auto-gate retry)."""
+        W = fact.block_W_hi if (hi and fact.block_W_hi is not None) else fact.block_W
+        if W is not None:
+            return _winv_apply_batched(W, fact.block_d, fact.block_s, b)
+        return ldl_solve(fact.block_LD, b)
+
+    def _solve_once(self, fact: SchurFactor, rhs: BlockRhs, hi: bool = False) -> BlockRhs:
+        self.n_solves += 1
+        local = fact.border is None
+        chain = _chain_border_ok(fact.assembly, fact.border_loc, fact.nc)
+        with record_function("sc_solver.block_solve"):
+            v = self._apply_blocks(fact, rhs.blocks, hi)
+            if chain:
+                sc_rhs = rhs.coupling - _border_apply_chain(fact.border_loc, v, fact.nc)
+            elif local:
+                sc_rhs = rhs.coupling - _border_apply_local(
+                    fact.border_loc, fact.row_idx, v, fact.nc
+                )
+            else:
+                sc_rhs = rhs.coupling - torch.einsum("bci,bi->c", fact.border.to(v.dtype), v)
+        with record_function("sc_solver.sc_back_solve"):
+            y = self.sc_solver.solve(fact.sc_fact, sc_rhs)
+        with record_function("sc_solver.back_solve"):
+            if chain:
+                rhs2 = rhs.blocks - _border_T_apply_chain(fact.border_loc, y)
+            elif local:
+                rhs2 = rhs.blocks - _border_T_apply_local(fact.border_loc, fact.row_idx, y)
+            else:
+                rhs2 = rhs.blocks - torch.einsum("bci,c->bi", fact.border.to(y.dtype), y)
+            x = self._apply_blocks(fact, rhs2, hi)
+        return BlockRhs(blocks=x, coupling=y)
+
+    def _solve_refined(self, fact: SchurFactor, rhs: BlockRhs):
+        """(solution, refined_ok).  Adaptive mode refines while the f32
+        probe fails, at most REFINE_MAX_PASSES passes, as a host loop with
+        one flag read per pass."""
+
+        def up(b: BlockRhs) -> BlockRhs:  # promote to the rhs dtype
+            return BlockRhs(b.blocks.to(rhs.blocks.dtype), b.coupling.to(rhs.coupling.dtype))
+
+        def refine_pass(x: BlockRhs, hi=False) -> BlockRhs:
+            kx = _kkt_matvec(fact, x)
+            r = BlockRhs(rhs.blocks - kx.blocks, rhs.coupling - kx.coupling)
+            dx = up(self._solve_once(fact, r, hi))
+            return BlockRhs(x.blocks + dx.blocks, x.coupling + dx.coupling)
+
+        def solve_adaptive(hi):
+            x = up(self._solve_once(fact, rhs, hi))
+            need = _refine_probe(fact, rhs, x, REFINE_TRIGGER)
+            passes = 0
+            while passes < REFINE_MAX_PASSES and bool(need.item()):
+                x = refine_pass(x, hi)
+                passes += 1
+                need = _refine_probe(fact, rhs, x, REFINE_TRIGGER)
+            return x, need
+
+        if self.adaptive_refine:
+            x, need = solve_adaptive(False)
+            if fact.block_W_hi is not None and bool(need.item()):
+                # bf16 auto-gate: a stall on the reduced-storage W retries
+                # the whole solve with the full-precision W
+                self.n_gate_fallbacks += 1
+                x, need = solve_adaptive(True)
+            return x, ~need
+        x = up(self._solve_once(fact, rhs))
+        for _ in range(self.refine_steps):
+            x = refine_pass(x)
+        return x, torch.ones((), dtype=torch.bool, device=x.blocks.device)
+
+    def solve(self, fact: SchurFactor, rhs: BlockRhs) -> BlockRhs:
+        return self._solve_refined(fact, rhs)[0]
+
+    def solve_with_status(self, fact: SchurFactor, rhs: BlockRhs):
+        x, ok = self._solve_refined(fact, rhs)
+        bad = torch.where(
+            ok, int(LinearSolverStatus.successful), int(LinearSolverStatus.error)
+        ).to(torch.int32)
+        return x, torch.maximum(self.status(fact), bad)
+
+    def inertia(self, fact: SchurFactor):
+        return fact.inertia[0], fact.inertia[1], fact.inertia[2]
+
+    def status(self, fact: SchurFactor) -> torch.Tensor:
+        return fact.status

@@ -1,116 +1,54 @@
-"""Batched LDL^T + L^{-1} panel factorization: the CUDA kernel and its plain
-PyTorch version.
+"""Batched LDL^T panel factorizations (with and without W = L^{-1}): the CUDA
+kernel's three entries and their plain PyTorch versions.
 
-Counterpart of ``parapint_tpu/ops/pallas_ldl.py::ldl_panels_slab_winv``
-(Pallas body ``_make_slab_kernel(with_w=True)``).  The kernel source is
-``parapint_tpu_torch/csrc/ldl_panel_winv.cu``; its header says what bounds
-it on the card and how the design answers that.
+Counterparts of ``parapint_tpu/ops/pallas_ldl.py``:
 
-The wrapper :func:`ldl_panels_slab_winv` takes the plain version only for a
-tensor on the CPU.  For a CUDA tensor it launches the kernel or raises.
+- :func:`ldl_panels_slab_winv` — ``ldl_panels_slab_winv`` (Pallas body
+  ``_make_slab_kernel(with_w=True)``), packed LDL^T and W, b % 8 == 0;
+- :func:`ldl_panels_slab` — ``ldl_panels_slab`` (``with_w=False``), packed
+  LDL^T, b % 8 == 0;
+- :func:`ldl_panels` — ``ldl_panels`` (``_panel_kernel``), packed LDL^T of
+  any width 1 <= b <= 128.
 
-The kernel is compiled with ``nvcc`` at first use into
-``parapint_tpu_torch/_build/`` (a plain C-ABI shared library keyed by a hash
-of the source, loaded with ``ctypes``), so a fresh checkout builds it on the
-first factorization.
+One kernel template serves all three, ``parapint_tpu_torch/csrc/ldl_panel_winv.cu``
+(``kWithW`` true for the first, false for the other two); its header says
+what bounds it on the card and how the design answers that.
+
+Each wrapper takes its plain version only for a tensor on the CPU.  For a
+CUDA tensor it launches the kernel or raises, and adds one to its own
+``launches`` count.  The kernel is compiled with ``nvcc`` at first use
+(``ops/cuda_build.py``).
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ldl_panel_winv.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-]
+from parapint_tpu_torch.ops import cuda_build
+
+SOURCE = cuda_build.CSRC / "ldl_panel_winv.cu"
 MAX_PANEL = 128
 
-_lib: Optional[ctypes.CDLL] = None
-# compiler output of the build that actually compiled (None when the
-# library existed already): ptxas reports registers, shared memory, spills
-build_log: Optional[str] = None
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is not None:
-        cand = Path(CUDA_HOME) / "bin" / "nvcc"
-        if cand.exists():
-            return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: cannot build the LDL panel kernel")
-    return found
-
-
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; returns its path.
-
-    The library name carries a hash of the source and the flags, so an edit
-    to either rebuilds.  The output is written under a temporary name and
-    renamed, so concurrent first uses never load a half-written file.
-    """
-    global build_log
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libldl_panel_winv-{key}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_log = proc.stdout + proc.stderr
-    return out
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "ldl_panel_winv_f32": [_P, _P, _P, _I, _I, _P],
+    "ldl_panel_f32": [_P, _P, _I, _I, _P],
+}
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.ldl_panel_winv_f32
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return cuda_build.load(SOURCE, SIGNATURES)
 
 
-def ldl_panels_slab_winv_plain(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: right-looking unblocked sweep over the true
-    pivot column plus the W = L^{-1} recurrence W[j+1:] -= l (x) W[j].
-
-    A (B, b, b) -> (LD, W), both (B, b, b): strict lower of LD = unit L,
-    diagonal = D, strict upper = 0; only the lower triangle of A is read.
-    Zero pivots divide by 1.
-    """
+def _sweep(A: torch.Tensor, with_w: bool):
+    """Right-looking unblocked sweep over the true pivot column, plus (with
+    ``with_w``) the W = L^{-1} recurrence W[j+1:] -= l (x) W[j].  Only the
+    lower triangle of A is read; the strict upper of the result is 0."""
     B, b, _ = A.shape
     M = torch.tril(A)
-    W = torch.eye(b, dtype=A.dtype, device=A.device).expand(B, b, b).clone()
+    W = torch.eye(b, dtype=A.dtype, device=A.device).expand(B, b, b).clone() if with_w else None
     for j in range(b):
         piv = M[:, j, j]
         piv_safe = torch.where(piv.abs() > 0, piv, torch.ones_like(piv))
@@ -118,8 +56,25 @@ def ldl_panels_slab_winv_plain(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
         l = col / piv_safe[:, None]
         M[:, j + 1 :, j + 1 :] -= torch.tril(l[:, :, None] * col[:, None, :])
         M[:, j + 1 :, j] = l
-        W[:, j + 1 :, : j + 1] -= l[:, :, None] * W[:, None, j, : j + 1]
+        if with_w:
+            W[:, j + 1 :, : j + 1] -= l[:, :, None] * W[:, None, j, : j + 1]
     return M, W
+
+
+def ldl_panels_slab_winv_plain(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`ldl_panels_slab_winv`: A (B, b, b) -> (LD, W),
+    LD packed (strict lower = unit L, diagonal = D, strict upper = 0).  Zero
+    pivots divide by 1."""
+    return _sweep(A, with_w=True)
+
+
+def ldl_panels_plain(A: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`ldl_panels` and :func:`ldl_panels_slab`:
+    A (B, b, b) -> packed LD."""
+    return _sweep(A, with_w=False)[0]
+
+
+ldl_panels_slab_plain = ldl_panels_plain
 
 
 def random_panels(B, b, seed, garbage_upper=False, zero_pivot=False) -> np.ndarray:
@@ -146,46 +101,70 @@ def random_panels(B, b, seed, garbage_upper=False, zero_pivot=False) -> np.ndarr
     return A.astype(np.float32)
 
 
-def _check(A: torch.Tensor) -> None:
+def _check(A: torch.Tensor, multiple_of_8: bool) -> None:
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"expected (B, b, b) panels, got {tuple(A.shape)}")
     b = A.shape[-1]
-    if b % 8 != 0 or not 0 < b <= MAX_PANEL:
-        raise ValueError(f"panel size b={b} must be a multiple of 8 and <= {MAX_PANEL}")
+    if not 0 < b <= MAX_PANEL or (multiple_of_8 and b % 8 != 0):
+        need = "a multiple of 8 and " if multiple_of_8 else ""
+        raise ValueError(f"panel size b={b} must be {need}<= {MAX_PANEL}")
     if A.dtype != torch.float32:
         raise TypeError(f"expected float32 panels, got {A.dtype}")
     if not A.is_contiguous():
         raise ValueError("panels must be contiguous")
-
-
-def ldl_panels_slab_winv(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, b, b) f32 symmetric panels -> (packed LD, W = L^{-1}).
-
-    b % 8 == 0 and b <= 128.  A CPU tensor goes through
-    :func:`ldl_panels_slab_winv_plain`; a CUDA tensor through the kernel,
-    on the current stream (the call does not synchronise).  Each kernel
-    launch adds one to ``ldl_panels_slab_winv.launches``.
-    """
-    _check(A)
-    if A.device.type == "cpu":
-        return ldl_panels_slab_winv_plain(A)
-    if A.device.type != "cuda":
+    if A.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {A.device}")
+
+
+def _launch(name: str, A: torch.Tensor, *outs: torch.Tensor) -> None:
     B, b, _ = A.shape
-    LD = torch.empty_like(A)
-    W = torch.empty_like(A)
-    if B == 0:
-        return LD, W
     lib = _load()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.ldl_panel_winv_f32(
-            A.data_ptr(), LD.data_ptr(), W.data_ptr(), B, b, stream
-        )
+        err = getattr(lib, name)(A.data_ptr(), *(o.data_ptr() for o in outs), B, b, stream)
     if err != 0:
-        raise RuntimeError(f"ldl_panel_winv_f32 launch failed: cudaError {err}")
-    ldl_panels_slab_winv.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def ldl_panels_slab_winv(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, b, b) f32 symmetric panels -> (packed LD, W = L^{-1}); b % 8 == 0
+    and b <= 128.  CPU: the plain version; CUDA: the kernel on the current
+    stream (the call does not synchronise)."""
+    _check(A, multiple_of_8=True)
+    if A.device.type == "cpu":
+        return ldl_panels_slab_winv_plain(A)
+    LD, W = torch.empty_like(A), torch.empty_like(A)
+    if A.shape[0]:
+        _launch("ldl_panel_winv_f32", A, LD, W)
+        ldl_panels_slab_winv.launches += 1
     return LD, W
 
 
+def _no_w_entry(entry, A: torch.Tensor, multiple_of_8: bool) -> torch.Tensor:
+    """The shared body of the two no-W entries: check, then the plain
+    version on the CPU or one launch counted on ``entry``."""
+    _check(A, multiple_of_8)
+    if A.device.type == "cpu":
+        return ldl_panels_plain(A)
+    LD = torch.empty_like(A)
+    if A.shape[0]:
+        _launch("ldl_panel_f32", A, LD)
+        entry.launches += 1
+    return LD
+
+
+def ldl_panels_slab(A: torch.Tensor) -> torch.Tensor:
+    """(B, b, b) f32 symmetric panels -> packed LD; b % 8 == 0 and b <= 128
+    (the batched no-W factorization of ``ldl_factor_batched``)."""
+    return _no_w_entry(ldl_panels_slab, A, multiple_of_8=True)
+
+
+def ldl_panels(A: torch.Tensor) -> torch.Tensor:
+    """(B, b, b) f32 symmetric panels -> packed LD; any 1 <= b <= 128 (the
+    per-panel factorization of the dense ``ldl_factor``)."""
+    return _no_w_entry(ldl_panels, A, multiple_of_8=False)
+
+
 ldl_panels_slab_winv.launches = 0
+ldl_panels_slab.launches = 0
+ldl_panels.launches = 0

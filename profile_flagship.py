@@ -1,9 +1,12 @@
 """Where the time of the port's flagship solve goes, on one CUDA card.
 
-    python3 profile_flagship.py
+    python3 profile_flagship.py [dense] [banded]
 
-Builds the flagship of ``chip_smoke.py`` (Burgers 50/256/64, banded float32
-KKT, 128-wide tiles, cyclic-reduction coupling solve, tol 1e-8) and prints,
+Builds the flagship of ``chip_smoke.py`` (Burgers 50/256/64, float32 KKT,
+cyclic-reduction coupling solve, tol 1e-8) on each path named (both by
+default): "dense" — dense blocks, ``SchurComplementSolver`` in W form (the
+JAX package's ``burgers_64blocks_cr``); "banded" — band stores,
+``BandedSchurComplementSolver`` with 128-wide tiles.  For each it prints,
 all from this one run:
 
 1. the card's name and power limit;
@@ -13,7 +16,8 @@ all from this one run:
    includes its device work);
 4. one solve under ``torch.profiler``: its wall time, the summed device
    time of its kernels, their busy share of that traced wall, the number of
-   kernel launches, and the kernels with the most device time.
+   kernel launches, the kernels with the most device time, and the device
+   time under each of the solver's ``sc_solver.*`` phase labels.
 
 Writes nothing; everything goes to standard output.
 """
@@ -26,7 +30,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import FLAGSHIP, TILE_SIZE, TOL
+from chip_smoke import FLAGSHIP, TILE_SIZE, TOL, _dense_solver
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
@@ -57,26 +61,21 @@ def _bracket_phases(objs_names, host, calls):
     return lambda: [delattr(obj, name) for obj, name in saved]
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("profile_flagship: CUDA is not available", file=sys.stderr)
-        sys.exit(1)
+def profile_path(path):
     import parapint_tpu_torch as ptt
     from parapint_tpu_torch.examples import burgers
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0])
-    dev = "cuda"
-    spec = burgers.build_spec(**FLAGSHIP, device=dev)
+    print(f"===== {path} path")
+    spec = burgers.build_spec(**FLAGSHIP)
     iface = ptt.DynamicSchurComplementInteriorPointInterface(
-        spec, kkt_dtype=torch.float32, block_form="banded", device=dev
+        spec, kkt_dtype=torch.float32, block_form=path
     )
-    solver = ptt.BandedSchurComplementSolver(
-        tile_size=TILE_SIZE, schur_complement_solver=ptt.BlockTridiagSolver(ns=iface.ns),
-        device=dev,
-    )
+    if path == "dense":
+        solver = _dense_solver("cr")
+    else:
+        solver = ptt.BandedSchurComplementSolver(
+            tile_size=TILE_SIZE, schur_complement_solver=ptt.BlockTridiagSolver(ns=iface.ns)
+        )
     opts = ptt.IPOptions()
     opts.tol = TOL
     opts.linalg.solver = solver
@@ -85,7 +84,7 @@ def main():
     s0 = iface.init_state()
 
     first, res = _timed(lambda: solve(s0))
-    print(f"first solve (loads the kernel, building it if _build/ has none) {first:.4f} s, "
+    print(f"first solve (loads the kernels, building them if _build/ has none) {first:.4f} s, "
           f"iterations {res.iterations}, status {res.status}")
     walls = [_timed(lambda: solve(s0))[0] for _ in range(5)]
     print("warm solve walls (s):", [round(w, 4) for w in walls])
@@ -106,7 +105,12 @@ def main():
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pwall, _ = _timed(lambda: solve(s0))
     ka = prof.key_averages()
-    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the sc_solver.* labels also appear as device-side ranges; they are
+    # spans, not kernels, and are kept out of the sums
+    kernels = [
+        e for e in ka
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("sc_solver.")
+    ]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in ka if e.key in LAUNCH_CALLS)
     print(f"traced solve wall {pwall * 1e3:.2f} ms; summed kernel device time "
@@ -116,6 +120,29 @@ def main():
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3
         print(f"{e.key[:60]:60s} {ms:10.3f} {e.count:6d} {ms * 1e3 / e.count:8.2f}")
+    labels = [
+        e for e in ka
+        if e.key.startswith("sc_solver.") and e.device_type == torch.autograd.DeviceType.CPU
+    ]
+    if labels:
+        # device ms: kernel time launched inside the label; host ms: its
+        # wall on the host (the traced solve, so slowed by the tracer)
+        print(f"{'solver phase label':28s} {'device ms':>10s} {'host ms':>10s} {'calls':>6s}")
+        for e in sorted(labels, key=lambda e: -e.device_time_total):
+            print(f"{e.key:28s} {e.device_time_total / 1e3:10.3f} "
+                  f"{e.cpu_time_total / 1e3:10.3f} {e.count:6d}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("profile_flagship: CUDA is not available", file=sys.stderr)
+        sys.exit(1)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0])
+    for path in sys.argv[1:] or ("dense", "banded"):
+        profile_path(path)
 
 
 if __name__ == "__main__":

@@ -48,7 +48,9 @@ def pair():
     j_iface = pt.DynamicSchurComplementInteriorPointInterface(
         jburgers.build_spec(**SHAPE), block_form="banded"
     )
-    t_iface = ptt.DynamicSchurComplementInteriorPointInterface(burgers.build_spec(**SHAPE))
+    t_iface = ptt.DynamicSchurComplementInteriorPointInterface(
+        burgers.build_spec(**SHAPE, device="cpu"), block_form="banded"
+    )
     j_data = j_iface.eval_kkt_data(j_iface.init_state(), 0.1)
     t_data = t_iface.eval_kkt_data(t_iface.init_state(), 0.1)
     j_kkt = j_iface.assemble_kkt(j_data, 0.017, 0.003)
@@ -84,7 +86,7 @@ def test_float32_bands_match_reference():
         jburgers.build_spec(**SHAPE), block_form="banded", kkt_dtype=jnp.float32
     )
     t_iface = ptt.DynamicSchurComplementInteriorPointInterface(
-        burgers.build_spec(**SHAPE), kkt_dtype=torch.float32
+        burgers.build_spec(**SHAPE, device="cpu"), block_form="banded", kkt_dtype=torch.float32
     )
     jb = np.asarray(j_iface.eval_kkt_data(j_iface.init_state(), 0.1)[0])
     tb = _np(t_iface.eval_kkt_data(t_iface.init_state(), 0.1)[0])
@@ -129,15 +131,40 @@ def test_solver_solve_and_inertia_match_reference(pair):
     assert np.abs(_np(tx.coupling) - np.asarray(jx.coupling)).max() < 1e-9
 
 
-def test_solver_without_coupling_solver_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        ptt.BandedSchurComplementSolver()
+def test_default_coupling_solver_matches_reference(pair):
+    """Without a coupling solver both packages factor the chain SC densely
+    (DenseLDLSolver(refine_steps=0)); same solve and inertia as the JAX
+    package to the float64 dense-parity bound."""
+    _, _, (j_data, j_kkt), _ = pair
+    rhs = j_data[1]
+    jsol = pt.BandedSchurComplementSolver()
+    jf = jax.jit(jsol.numeric)(j_kkt)
+    jx, jst = jax.jit(jsol.solve_with_status)(jf, rhs)
+    tsol = ptt.BandedSchurComplementSolver()
+    assert isinstance(tsol.sc_solver, ptt.DenseLDLSolver) and tsol.sc_solver.refine_steps == 0
+    tf = tsol.numeric(_kkt_from_reference(j_kkt))
+    tx, tst = tsol.solve_with_status(
+        tf, BlockRhs(torch.as_tensor(np.array(rhs.blocks)), torch.as_tensor(np.array(rhs.coupling)))
+    )
+    assert int(tst) == int(jst) == 0
+    assert tuple(int(v) for v in tsol.inertia(tf)) == tuple(int(v) for v in jsol.inertia(jf))
+    assert np.abs(_np(tx.blocks) - np.asarray(jx.blocks)).max() < 1e-9
+    assert np.abs(_np(tx.coupling) - np.asarray(jx.coupling)).max() < 1e-9
 
 
-def test_dense_block_form_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A9"):
-        ptt.DynamicSchurComplementInteriorPointInterface(
-            burgers.build_spec(nfe_x=4, nfe_t=4, num_time_blocks=2), block_form="dense"
+def test_build_spec_defaults_to_the_card():
+    """Without device= the example targets CUDA; on a machine without CUDA
+    it raises instead of quietly building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the default device builds on the card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        burgers.build_spec(nfe_x=4, nfe_t=4, num_time_blocks=2)
+    spec = burgers.build_spec(nfe_x=4, nfe_t=4, num_time_blocks=2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ptt.DynamicModelSpec(
+            num_blocks=2, objective=spec.objective, eq_constraints=spec.eq_constraints,
+            params={"t0": np.zeros(2)}, x0=np.zeros((2, spec.n_x)),
+            start_state_idx=spec.start_state_idx, end_state_idx=spec.end_state_idx,
         )
 
 

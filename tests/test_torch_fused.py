@@ -66,8 +66,10 @@ def jax_side():
 
 
 def _port(spec=None):
-    spec = spec or burgers.build_spec(**SHAPE)
-    iface = ptt.DynamicSchurComplementInteriorPointInterface(spec, kkt_dtype=torch.float32)
+    spec = spec or burgers.build_spec(**SHAPE, device="cpu")
+    iface = ptt.DynamicSchurComplementInteriorPointInterface(
+        spec, kkt_dtype=torch.float32, block_form="banded"
+    )
     solver = ptt.BandedSchurComplementSolver(
         schur_complement_solver=ptt.BlockTridiagSolver(ns=iface.ns), device="cpu"
     )
@@ -109,13 +111,14 @@ def test_init_state_and_convert_roundtrip(jax_side):
 def test_spec_arrays_carry_across(jax_side):
     j_spec, _, _ = jax_side
     arrays = spec_arrays_from_numpy(j_spec, "cpu")
-    t_spec = burgers.build_spec(**SHAPE)
+    t_spec = burgers.build_spec(**SHAPE, device="cpu")
     rebuilt = ptt.DynamicModelSpec(
         num_blocks=t_spec.num_blocks,
         objective=t_spec.objective,
         eq_constraints=t_spec.eq_constraints,
         start_state_idx=t_spec.start_state_idx,
         end_state_idx=t_spec.end_state_idx,
+        device="cpu",
         **arrays,
     )
     for name in ("x0", "xl", "xu", "gl", "gu", "eq_mask", "ineq_mask", "x_mask"):

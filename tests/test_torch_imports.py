@@ -24,8 +24,12 @@ def _imported_roots(path: Path):
 
 def test_package_has_sources():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES}
-    assert {"__init__.py", "ops/ldl_panel.py", "algorithms/fused.py"} <= names
+    assert {
+        "__init__.py", "ops/ldl_panel.py", "ops/winv_apply.py", "ops/cuda_build.py",
+        "linalg/dense.py", "linalg/schur.py", "algorithms/fused.py",
+    } <= names
     assert (PKG / "csrc" / "ldl_panel_winv.cu").exists()
+    assert (PKG / "csrc" / "winv_apply.cu").exists()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(PKG).as_posix())
@@ -37,7 +41,9 @@ def test_module_imports_no_jax(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, parapint_tpu_torch, parapint_tpu_torch.convert, "
-        "parapint_tpu_torch.examples.burgers, parapint_tpu_torch.ops.ldl_panel; "
+        "parapint_tpu_torch.examples.burgers, parapint_tpu_torch.ops.ldl_panel, "
+        "parapint_tpu_torch.ops.winv_apply, parapint_tpu_torch.ops.cuda_build, "
+        "parapint_tpu_torch.linalg.dense, parapint_tpu_torch.linalg.schur; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'parapint_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

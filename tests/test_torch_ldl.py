@@ -120,3 +120,88 @@ def test_recursive_unit_lower_inverse(n):
     W_r = np.asarray(jldl._unit_lower_inv_b(jnp.asarray(L[None])))[0]
     np.testing.assert_allclose(W, W_r, rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(W @ L, np.eye(n), atol=1e-9)
+
+
+# -- the dense single-matrix and batched families (K5 / K2 panels in f32) ----
+#
+# float64 against the reference at 1e-10 relative (the same column sweep and
+# recursive inverse, different summation order); float32 at 2e-5 relative
+# to the largest factor entry (see the module docstring).
+
+
+def _dtype_tol(dtype):
+    return (np.float64, torch.float64, 1e-10) if dtype == "f64" else (np.float32, torch.float32, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("n,bs,algorithm", [(40, 16, "fori"), (37, 13, "fori"), (70, 16, "recursive"), (24, 8, "unrolled")])
+def test_ldl_factor_and_solve_match_reference(n, bs, algorithm, dtype):
+    npd, tdt, tol = _dtype_tol(dtype)
+    rng = np.random.default_rng(n)
+    K = kkt_like(n - 6, 6, rng, c_reg=1e-3).astype(npd)
+    LD_r, d_r = jldl.ldl_factor(jnp.asarray(K), block_size=bs, algorithm=algorithm)
+    LD, d = tldl.ldl_factor(torch.as_tensor(K), block_size=bs, algorithm=algorithm)
+    assert LD.dtype == tdt and LD.shape == LD_r.shape
+    scale = np.abs(np.tril(np.asarray(LD_r))).max()
+    assert np.abs(np.tril(LD.numpy()) - np.tril(np.asarray(LD_r))).max() <= tol * scale
+    pr = [int(v) for v in jldl.ldl_inertia(d_r, n=n)]
+    assert [int(v) for v in tldl.ldl_inertia(d, n=n)] == pr == [n - 6, 6, 0]
+    b = rng.standard_normal((n, 3)).astype(npd)
+    x = tldl.ldl_solve(LD, torch.as_tensor(b)).numpy()
+    x_r = np.asarray(jldl.ldl_solve(LD_r, jnp.asarray(b)))
+    assert np.abs(x - x_r).max() <= 10 * tol * max(1.0, np.abs(x_r).max())
+    x1 = tldl.ldl_solve(LD, torch.as_tensor(b[:, 0])).numpy()
+    np.testing.assert_allclose(x1, x[:, 0], rtol=0, atol=1e-12 if dtype == "f64" else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("n,bs", [(20, 8), (49, 64), (130, 64)])
+def test_ldl_factor_batched_and_solve_match_reference(n, bs, dtype):
+    npd, tdt, tol = _dtype_tol(dtype)
+    rng = np.random.default_rng(n + 1)
+    A = np.stack([kkt_like(n - 4, 4, rng, c_reg=1e-3) for _ in range(3)]).astype(npd)
+    LD_r, d_r = jldl.ldl_factor_batched(jnp.asarray(A), block_size=bs)
+    LD, d = tldl.ldl_factor_batched(torch.as_tensor(A), block_size=bs)
+    assert LD.dtype == tdt and LD.shape == LD_r.shape
+    scale = np.abs(np.tril(np.asarray(LD_r))).max()
+    assert np.abs(np.tril(LD.numpy()) - np.tril(np.asarray(LD_r))).max() <= tol * scale
+    pos, neg, zero = tldl.ldl_inertia(d, n=n)
+    assert neg.tolist() == [4, 4, 4] and zero.tolist() == [0, 0, 0]
+    B = rng.standard_normal((3, n, 2)).astype(npd)
+    X = tldl.ldl_solve(LD, torch.as_tensor(B)).numpy()
+    X_r = np.stack([np.asarray(jldl.ldl_solve(LD_r[i], jnp.asarray(B[i]))) for i in range(3)])
+    assert np.abs(X - X_r).max() <= 10 * tol * max(1.0, np.abs(X_r).max())
+    xv = tldl.ldl_solve(LD, torch.as_tensor(B[:, :, 0])).numpy()
+    assert np.abs(xv - X[:, :, 0]).max() <= 10 * tol * max(1.0, np.abs(X_r).max())
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_winv_family_matches_reference(dtype):
+    """ldl_winv, unit_lower_inv_blocked (incl. the identity padding of a
+    non-multiple size), winv_apply and ldl_inverse."""
+    npd, _, tol = _dtype_tol(dtype)
+    rng = np.random.default_rng(3)
+    n = 50
+    K = kkt_like(n - 10, 10, rng, c_reg=1e-2)
+    s = np.asarray(jldl.ruiz_scale(jnp.asarray(K)))
+    K = (K * s[:, None] * s[None, :]).astype(npd)
+    LD_r, d_r = jldl.ldl_factor(jnp.asarray(K), block_size=16)
+    LD = torch.as_tensor(np.array(LD_r))
+    W_r, dd_r = jldl.ldl_winv(LD_r, 16)
+    W, dd = tldl.ldl_winv(LD, 16)
+    scale = np.abs(np.asarray(W_r)).max()
+    assert np.abs(W.numpy() - np.asarray(W_r)).max() <= tol * scale
+    np.testing.assert_array_equal(dd.numpy(), np.asarray(dd_r))
+    L = np.tril(np.asarray(LD_r), -1)[:45, :45] + np.eye(45, dtype=npd)
+    Wb = tldl.unit_lower_inv_blocked(torch.as_tensor(L), 16).numpy()
+    Wb_r = np.asarray(jldl.unit_lower_inv_blocked(jnp.asarray(L), 16))
+    assert Wb.shape == (45, 45)
+    assert np.abs(Wb - Wb_r).max() <= tol * np.abs(Wb_r).max()
+    b = rng.standard_normal((n, 2)).astype(npd)
+    x = tldl.winv_apply(W, dd, torch.as_tensor(b)).numpy()
+    x_r = np.asarray(jldl.winv_apply(W_r, dd_r, jnp.asarray(b)))
+    assert np.abs(x - x_r).max() <= 10 * tol * max(1.0, np.abs(x_r).max())
+    assert np.abs(K @ x - b).max() <= 100 * tol * max(1.0, np.abs(b).max())
+    Kinv = tldl.ldl_inverse(LD, dd).numpy()
+    Kinv_r = np.asarray(jldl.ldl_inverse(LD_r, d_r))
+    assert np.abs(Kinv - Kinv_r).max() <= 10 * tol * np.abs(Kinv_r).max()

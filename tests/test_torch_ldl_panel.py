@@ -1,11 +1,14 @@
-"""PyTorch panel factorization (parapint_tpu_torch/ops/ldl_panel.py) vs the
-JAX package's Pallas kernel in interpret mode and its XLA column loop.
+"""PyTorch panel factorizations (parapint_tpu_torch/ops/ldl_panel.py: the
+entries ldl_panels_slab_winv, ldl_panels_slab and ldl_panels) vs the JAX
+package's Pallas kernels in interpret mode and its XLA column loop.
 
-On the CPU the wrapper takes the plain version, so these tests hold the
-plain version — the kernel's oracle on the card — against the reference.
+On the CPU each wrapper takes its plain version, so these tests hold the
+plain versions — the kernel's oracles on the card — against the reference.
 Inputs are float32 from a numpy seed.  Tolerance: 3e-5 x max|reference|
 for the packed factor (the reference's own slab-vs-unblocked bound in
 tests/test_pallas_ldl.py), 2e-3 for W L - I (same source); inertia exact.
+The Pallas kernels leave garbage in the strict upper triangle; the port
+writes 0 there, so factors are compared on the lower triangle.
 """
 
 import jax
@@ -15,9 +18,15 @@ import pytest
 import torch
 
 from parapint_tpu.ops.ldl import _ldl_unblocked
+from parapint_tpu.ops.pallas_ldl import ldl_panels as jax_panels
+from parapint_tpu.ops.pallas_ldl import ldl_panels_slab as jax_slab
 from parapint_tpu.ops.pallas_ldl import ldl_panels_slab_winv as jax_slab_winv
-from parapint_tpu_torch.ops import ldl_panel
+from parapint_tpu_torch.ops import cuda_build, ldl_panel
 from parapint_tpu_torch.ops.ldl_panel import (
+    ldl_panels,
+    ldl_panels_plain,
+    ldl_panels_slab,
+    ldl_panels_slab_plain,
     ldl_panels_slab_winv,
     ldl_panels_slab_winv_plain,
     random_panels as _panels,
@@ -63,6 +72,48 @@ def test_plain_matches_pallas_interpret_and_xla_loop(b, case):
     assert np.abs(rec - A_sym).max() < RTOL * np.abs(A_sym).max()
 
 
+@pytest.mark.parametrize(
+    "entry, b",
+    [("slab", 8), ("slab", 56), ("panels", 13), ("panels", 15), ("panels", 32)],
+)
+@pytest.mark.parametrize("case", ["plain", "garbage_upper", "zero_pivot"])
+def test_no_w_plain_matches_pallas_interpret(entry, b, case):
+    """K2 (ldl_panels_slab, b % 8 == 0) and K5 (ldl_panels, any width)."""
+    A = _panels(3, b, seed=b + 1, **({case: True} if case != "plain" else {}))
+    plain, ref_fn = {
+        "slab": (ldl_panels_slab_plain, jax_slab),
+        "panels": (ldl_panels_plain, jax_panels),
+    }[entry]
+    LD = plain(torch.as_tensor(A)).numpy()
+    ref = np.tril(np.asarray(ref_fn(jnp.asarray(A), interpret=True)))
+    A_sym = np.tril(A) + np.swapaxes(np.tril(A, -1), 1, 2)
+    ref_loop = np.tril(np.asarray(jax.vmap(_ldl_unblocked)(jnp.asarray(A_sym))))
+    scale = np.abs(ref).max()
+    assert np.abs(np.tril(LD) - ref).max() < RTOL * scale
+    assert np.abs(np.tril(LD) - ref_loop).max() < RTOL * scale
+    assert np.all(np.triu(LD, 1) == 0.0)
+    for i in range(3):
+        assert _signs(np.diag(LD[i])) == _signs(np.diag(ref[i]))
+    if case == "zero_pivot":
+        assert _signs(np.diagonal(LD, axis1=1, axis2=2))[2] == 3
+
+
+def test_no_w_wrappers_take_plain_versions_on_cpu():
+    A = torch.as_tensor(_panels(2, 16, seed=4))
+    counts = (ldl_panels_slab.launches, ldl_panels.launches)
+    assert torch.equal(ldl_panels_slab(A), ldl_panels_slab_plain(A))
+    assert torch.equal(ldl_panels(A), ldl_panels_plain(A))
+    A13 = torch.as_tensor(_panels(1, 13, seed=5))
+    assert torch.equal(ldl_panels(A13), ldl_panels_plain(A13))
+    assert (ldl_panels_slab.launches, ldl_panels.launches) == counts
+    with pytest.raises(ValueError):
+        ldl_panels_slab(A13)  # K2 needs b % 8 == 0
+    with pytest.raises(ValueError):
+        ldl_panels(torch.zeros(1, 129, 129))
+    with pytest.raises(TypeError):
+        ldl_panels(A.double())
+
+
 def test_inertia_matches_eigenvalues():
     A = _panels(4, 64, seed=7)
     LD, _ = ldl_panels_slab_winv_plain(torch.as_tensor(A))
@@ -99,6 +150,6 @@ def test_kernel_source_and_build_flags():
     """The CUDA source exists in the package and the build targets sm_90a
     as a plain C-ABI library (nothing here compiles it: no nvcc)."""
     src = ldl_panel.SOURCE.read_text()
-    assert 'extern "C"' in src and "ldl_panel_winv_f32" in src
-    assert "arch=compute_90a,code=sm_90a" in ldl_panel.NVCC_FLAGS
-    assert ldl_panel.BUILD_DIR.name == "_build"
+    assert 'extern "C"' in src and "ldl_panel_winv_f32" in src and "ldl_panel_f32" in src
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    assert cuda_build.BUILD_DIR.name == "_build"
