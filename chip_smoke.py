@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch port on one CUDA card: build the kernels, hold
-each against its plain version, and drive the Burgers flagship (nfe_x=50,
-nfe_t=256, 64 blocks) through the port's public entry points on the dense
-block path, its solver variants, and the banded path.
+each against its plain version, and drive the port's public entry points:
+the Burgers flagship (nfe_x=50, nfe_t=256, 64 blocks) on the dense block
+path, its solver variants and the banded path; the two-stage stochastic QP
+at the JAX package's ``stochastic_qp_32scenarios_1k`` size; the farmer; and
+the single-NLP examples through ``ip_solve``.
 
     python3 chip_smoke.py
 
@@ -12,9 +14,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 2. build           — compile ``parapint_tpu_torch/csrc/*.cu`` (one nvcc per
                      source, started together) into ``parapint_tpu_torch/_build``.
 3. kernels         — every kernel entry (K1 ``ldl_panels_slab_winv``, K2
-                     ``ldl_panels_slab``, K5 ``ldl_panels``, K6
+                     ``ldl_panels_slab``, K3 ``ldl_panels_batched_winv``, K4
+                     ``ldl_panels_batched``, K5 ``ldl_panels``, K6
                      ``winv_apply_fused``) vs its plain version on the card at
-                     the path's shapes plus edge cases; time kernel, plain
+                     the paths' shapes plus edge cases; time kernel, plain
                      version and (K6) the two-matmul form.
 4. dense flagship  — dense block form, float32 KKT, ``SchurComplementSolver``
                      in W form with cyclic-reduction coupling (the JAX
@@ -30,7 +33,28 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      ``SchurComplementSolver(block_size=128)`` on the card
                      and on a CPU copy: inertia equal, solutions close, K2 ==
                      8 and K5 == 25 launches.
-8. banded flagship — the banded block form, ``BandedSchurComplementSolver``
+8. column          — ``PT_PANEL_ALGO=column`` (restored afterwards): the
+                     dense flagship with K3 == 14 x numerics, K1 == 0, and
+                     the slab run's iterations and objective bit for bit;
+                     the LD-mode first KKT with K4 == 8, K2 == 0 and the slab
+                     run's LD bit for bit.  Then, under the default algorithm,
+                     one ``SchurComplementSolver(block_size=100)`` W-form
+                     numeric of the first KKT: K3 at width 100 (10 x per
+                     numeric), inertia equal to a CPU copy's.
+9. stochastic QP   — 32 scenarios x (n=768, me=192, n_first=64), float32
+                     KKT, the hybrid ``SchurComplementSolver`` (float64 pivot
+                     sweep, float32 W, adaptive refinement), tol 1e-8: one
+                     warm and one timed ``make_fused_ip_solve`` solve and one
+                     ``ip_solve``, each optimal with the JAX objective and
+                     iterations within 1 of JAX's; the timed solve repeats the
+                     warm one bit for bit; K6 == 2 x back solves, K5 ==
+                     numerics (the 64-wide Schur complement).
+10. farmer         — ``examples/stochastic.main()`` (170/80/250 acres) and the
+                     32-scenario farmer family through the fused driver, its
+                     timed solve bit for bit equal to the counted one.
+11. single NLP     — ``examples/interior_point.main()`` (x = (0, 1)) and
+                     ``examples/dynamics.main()`` (the golden p(t)).
+12. banded flagship — the banded block form, ``BandedSchurComplementSolver``
                      (the bench flagship): optimal, K1 launches == 22 x numerics.
 
 Every measurement line carries the card's name and power limit.  The line
@@ -40,6 +64,7 @@ last line of standard output is the JSON result.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -80,6 +105,43 @@ BANDED_PANELS_PER_NUMERIC = 22  # 8 tiles x 2 panels (Thomas) + 6 CR levels
 DENSE_K1_PER_NUMERIC = 14  # 8 block panels (1024 = 8 x 128) + 6 CR levels
 SC_PANELS_PER_NUMERIC = 25  # dense SC: 3087 -> 3200 = 25 x 128
 LD_K2_PER_NUMERIC = 8
+W100_K3_PER_NUMERIC = 10  # block_size=100: nk 922 -> 1000 = 10 x 100
+W100_K1_PER_NUMERIC = 6  # the CR levels' 56-wide tiles stay on K1
+
+# JAX package's results for the stochastic families on the CPU (the QP at
+# bench_all's stochastic_qp_32scenarios_1k size, its farmer family
+# stochastic_32), with JAX_PLATFORMS=cpu:
+#   import jax.numpy as jnp, parapint_tpu as pt, bench_all
+#   from parapint_tpu.utils.timer import HierarchicalTimer
+#   def run(iface, solver, fused):
+#       opts = pt.IPOptions(); opts.tol = 1e-8; opts.linalg.solver = solver
+#       if fused:
+#           status, res = pt.ip_solve_fused(iface, opts); n = int(res.iterations)
+#       else:
+#           timer = HierarchicalTimer(); status = pt.ip_solve(iface, opts, timer=timer)
+#           n = timer._root.children["IP solve"].children["convergence check"].count
+#       print(status, n, repr(float(iface.evaluate_objective())))
+#   hybrid = lambda: pt.SchurComplementSolver(block_size=128, explicit_inverse=True,
+#                                             factor_dtype=jnp.float64, apply_dtype=jnp.float32)
+#   run(bench_all.stochastic_qp(), hybrid(), True)   # -> optimal 18 61.205618968982115
+#   run(bench_all.stochastic_qp(), hybrid(), False)  # -> optimal 18 61.20561896896718
+#   # the farmer family with the default tol:
+#   #   pt.ip_solve_fused(bench_all.stochastic_32(), opts) with
+#   #   pt.SchurComplementSolver(block_size=64, explicit_inverse=True)
+#   #   -> optimal 63 -109642.32191097125
+# ``ip_solve`` iterations are counted as its convergence checks.
+QP = dict(n_scenarios=32, n=768, me=192, n_first=64)
+QP_JAX_OBJECTIVE = 61.205618968982115
+QP_JAX_ITERATIONS = 18
+QP_JAX_IP_ITERATIONS = 18
+FARMER32_JAX_OBJECTIVE = -109642.32191097125
+FARMER32_JAX_ITERATIONS = 63
+FARMER_ACRES = (170.0, 80.0, 250.0)  # reference golden, tests/test_examples.py
+FARMER_ATOL = 1e-4
+# reference golden p(t), tests/test_examples.py:10-21
+DYNAMICS_GOLDEN_P = (1.6046242850486279, 2.0, 1.4792062911745605, 0.5082444341496647,
+                     -0.009859487375413882, 0.40043954978583834, 1.3619861771562247,
+                     1.99059057528143, 1.7102013685364827)
 
 # Panel kernels: kernel and plain version run the same float32 operations in
 # the same order per entry (each product rounded before its subtraction, no
@@ -158,8 +220,10 @@ def phase_build():
 
 def _median_ms(fn, calls, trials=7):
     """Median over trials of the CUDA-event time of ``calls`` back-to-back
-    calls, per call, after a warm-up call."""
-    fn()
+    calls, per call, after as many warm-up calls (the first kernel timed in a
+    process read 12% slow after a single one)."""
+    for _ in range(calls):
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(trials):
@@ -213,6 +277,10 @@ def _winv_inputs(B, n, nk, seed, zero_pivot=False):
 def phase_kernels():
     from parapint_tpu_torch.ops.ldl_panel import (
         ldl_panels,
+        ldl_panels_batched,
+        ldl_panels_batched_plain,
+        ldl_panels_batched_winv,
+        ldl_panels_batched_winv_plain,
         ldl_panels_plain,
         ldl_panels_slab,
         ldl_panels_slab_plain,
@@ -223,18 +291,29 @@ def phase_kernels():
     from parapint_tpu_torch.ops.winv_apply import winv_apply_fused, winv_apply_plain
 
     cuda = lambda a: torch.as_tensor(a, device="cuda")
-    err = {"K1": 0.0, "K2": 0.0, "K5": 0.0, "K6": 0.0}
+    err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0}
     entries = {
         "K1": (ldl_panels_slab_winv, ldl_panels_slab_winv_plain),
         "K2": (lambda A: (ldl_panels_slab(A),), lambda A: (ldl_panels_slab_plain(A),)),
+        "K3": (ldl_panels_batched_winv, ldl_panels_batched_winv_plain),
+        "K4": (lambda A: (ldl_panels_batched(A),), lambda A: (ldl_panels_batched_plain(A),)),
         "K5": (lambda A: (ldl_panels(A),), lambda A: (ldl_panels_plain(A),)),
     }
+    # K3/K4: the column phase's widths (128, and 56 for the CR tiles), the
+    # odd widths a block_size that is not a multiple of 8 gives (50, 100,
+    # 127) and the degenerate 1-wide panel
+    batched = [((64, 128, 128), {}), ((32, 56, 56), {}), ((32, 50, 50), {}), ((64, 100, 100), {}),
+               ((16, 127, 127), {}), ((3, 1, 1), {}), ((32, 50, 50), {"garbage_upper": True}),
+               ((64, 100, 100), {"zero_pivot": True}), ((16, 127, 127), {"garbage_upper": True}),
+               ((3, 1, 1), {"zero_pivot": True})]
     cases = {
         "K1": [((64, 64, 64), {}), ((64, 128, 128), {}), ((32, 56, 56), {}), ((1, 56, 56), {}),
                ((3, 8, 8), {}), ((64, 64, 64), {"garbage_upper": True}),
                ((32, 56, 56), {"zero_pivot": True})],
         "K2": [((64, 128, 128), {}), ((32, 56, 56), {}), ((3, 8, 8), {}),
                ((64, 128, 128), {"garbage_upper": True}), ((32, 56, 56), {"zero_pivot": True})],
+        "K3": batched,
+        "K4": batched,
         "K5": [((1, 128, 128), {}), ((1, 13, 13), {}), ((4, 15, 15), {}),
                ((1, 128, 128), {"garbage_upper": True}), ((4, 15, 15), {"zero_pivot": True})],
     }
@@ -246,8 +325,10 @@ def phase_kernels():
             torch.cuda.synchronize()
             err[key] = max(err[key], _check_panel(f"{key} {kw or ''}", shape, out_k, plain(A)))
 
-    winv_cases = [((64, 1024, 922), False), ((13, 256, 200), False), ((7, 64, 64), True),
-                  ((3, 24, 20), True)]
+    # the dense flagship's shape, the stochastic QP's (32 scenarios, nk = n =
+    # 1024, no padding) and edge cases
+    winv_cases = [((64, 1024, 922), False), ((32, 1024, 1024), False), ((13, 256, 200), False),
+                  ((7, 64, 64), True), ((3, 24, 20), True)]
     for (B, n, nk), zp in winv_cases:
         W, d, s, b = _winv_inputs(B, n, nk, seed=n, zero_pivot=zp)
         for Wt in (W, W.to(torch.bfloat16)):
@@ -280,7 +361,7 @@ def phase_kernels():
         A = cuda(random_panels(*shape[:2], seed=100))
         ms = _median_ms(lambda: kern(A), 20)
         plain_ms = _median_ms(lambda: plain(A), 2, trials=3)
-        bd, by = panel_bound(shape[0], shape[1], key == "K1")
+        bd, by = panel_bound(shape[0], shape[1], key in ("K1", "K3"))
         say(f"time {key} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bd:.5f} ms ({by})")
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=bd, bound_by=by, library_ms=None, shape=shape)
@@ -289,11 +370,14 @@ def phase_kernels():
     for shape in [(64, 64, 64)] + [(e, 56, 56) for e in (32, 16, 8, 4, 2, 1)]:
         time_panel("K1", shape)
     timing["K2"] = time_panel("K2", (64, 128, 128))
+    timing["K3"] = time_panel("K3", (64, 128, 128))
+    time_panel("K3", (64, 100, 100))
+    timing["K4"] = time_panel("K4", (64, 128, 128))
     timing["K5"] = time_panel("K5", (1, 128, 128))
 
-    B, n, nk = 64, 1024, 922
-    W, d, s, b = _winv_inputs(B, n, nk, seed=7)
-    for Wt, key in ((W, "K6"), (W.to(torch.bfloat16), "K6 bf16")):
+    def time_winv(key, B, n, nk, bf16=False):
+        W, d, s, b = _winv_inputs(B, n, nk, seed=7)
+        Wt = W.to(torch.bfloat16) if bf16 else W
         Wf = Wt.float()
         v = torch.nn.functional.pad(b * s, (0, n - nk))[:, :, None]
         dsafe = torch.where(d.abs() > 0, d, torch.ones_like(d))[:, :, None]
@@ -306,27 +390,37 @@ def phase_kernels():
         say(f"time {key} {(B, n, nk)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library (two calls) {lib_ms:.4f} ms, bound {bd:.5f} ms ({by}), "
             f"{B * n * n * Wt.element_size() / (ms * 1e-3) / 1e9:.1f} GB/s of W")
-        timing[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bd, bound_by=by,
-                           library_ms=lib_ms, library="two torch.matmul calls", shape=(B, n, nk))
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bd, bound_by=by,
+                    library_ms=lib_ms, library="two torch.matmul calls", shape=(B, n, nk))
+
+    timing["K6"] = time_winv("K6", 64, 1024, 922)
+    timing["K6 bf16"] = time_winv("K6 bf16", 64, 1024, 922, bf16=True)
+    timing["K6 QP"] = time_winv("K6 QP", 32, 1024, 1024)
     return err, timing
 
 
+def _panel_entries():
+    from parapint_tpu_torch.ops import ldl_panel
+
+    return dict(K1=ldl_panel.ldl_panels_slab_winv, K2=ldl_panel.ldl_panels_slab,
+                K3=ldl_panel.ldl_panels_batched_winv, K4=ldl_panel.ldl_panels_batched,
+                K5=ldl_panel.ldl_panels)
+
+
 def _reset_counts():
-    from parapint_tpu_torch.ops.ldl_panel import ldl_panels, ldl_panels_slab, ldl_panels_slab_winv
     from parapint_tpu_torch.ops.winv_apply import winv_apply_fused
 
-    for fn in (ldl_panels, ldl_panels_slab, ldl_panels_slab_winv, winv_apply_fused):
+    for fn in (*_panel_entries().values(), winv_apply_fused):
         fn.launches = 0
     winv_apply_fused.launches_bf16 = 0
 
 
 def _counts():
-    from parapint_tpu_torch.ops.ldl_panel import ldl_panels, ldl_panels_slab, ldl_panels_slab_winv
     from parapint_tpu_torch.ops.winv_apply import winv_apply_fused
 
-    return dict(K1=ldl_panels_slab_winv.launches, K2=ldl_panels_slab.launches,
-                K5=ldl_panels.launches, K6=winv_apply_fused.launches,
-                K6_bf16=winv_apply_fused.launches_bf16)
+    counts = {k: fn.launches for k, fn in _panel_entries().items()}
+    counts.update(K6=winv_apply_fused.launches, K6_bf16=winv_apply_fused.launches_bf16)
+    return counts
 
 
 def _dense_solver(coupling="cr", w_store=None, refine=0):
@@ -351,7 +445,7 @@ def _dense_iface():
     return iface
 
 
-def _objective_gap(iface, result, label):
+def _objective_gap(iface, result, label, ref=JAX_OBJECTIVE):
     import parapint_tpu_torch as ptt
 
     if result.status != ptt.InteriorPointStatus.optimal.value:
@@ -361,19 +455,22 @@ def _objective_gap(iface, result, label):
             raise AssertionError(f"{label}: non-finite primals")
     iface._current_state = result.state
     obj = float(iface.evaluate_objective())
-    gap = abs(obj - JAX_OBJECTIVE) / max(1.0, abs(JAX_OBJECTIVE))
+    gap = abs(obj - ref) / max(1.0, abs(ref))
     if gap > OBJ_REL_GAP:
-        raise AssertionError(f"{label}: objective gap {gap} > {OBJ_REL_GAP}")
+        raise AssertionError(f"{label}: objective {obj!r}, gap {gap} to JAX {ref!r} > {OBJ_REL_GAP}")
     return obj, gap
 
 
-def _counted_solve(iface, solver, label, timed=0):
-    """One counted solve (every count zeroed just before, read just after),
-    then ``timed`` timed solves; returns (result, counts, first wall, walls)."""
+def _counted_solve(iface, solver, label, timed=0, ref=JAX_OBJECTIVE, tol=TOL, repeat=False):
+    """One counted solve through ``make_fused_ip_solve`` (every count zeroed
+    just before, read just after), then ``timed`` timed solves; returns
+    (result, counts) with the counted solve's iterations and objective in
+    the counts and whether the timed solves repeated its objective bit for
+    bit, which ``repeat`` requires."""
     import parapint_tpu_torch as ptt
 
     opts = ptt.IPOptions()
-    opts.tol = TOL
+    opts.tol = tol
     opts.linalg.solver = solver
     solve = ptt.make_fused_ip_solve(iface, opts)
     iface.set_bounds_relaxation_factor(opts.bounds_relaxation_factor)
@@ -390,21 +487,27 @@ def _counted_solve(iface, solver, label, timed=0):
     counts = _counts()
     counts["numerics"] = solver.n_numeric
     counts["solves"] = getattr(solver, "n_solves", None)
-    obj, gap = _objective_gap(iface, result, label)
-    walls = []
+    obj, gap = _objective_gap(iface, result, label, ref)
+    counts["iterations"], counts["objective"] = result.iterations, obj
+    walls, repeats = [], []
     for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = solve(state0)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    say(f"{label}: status optimal, iterations {result.iterations}, objective {obj!r} "
-        f"(JAX {JAX_OBJECTIVE!r}, rel gap {gap:.3e}), primal_inf {float(result.primal_inf):.3e}, "
+        repeats.append(_objective_gap(iface, result, label, ref)[0] == obj)
+    counts["repeats_bitwise"] = all(repeats)
+    say(f"{label}: status optimal, iterations {counts['iterations']}, objective {obj!r} "
+        f"(JAX {ref!r}, rel gap {gap:.3e}), primal_inf {float(result.primal_inf):.3e}, "
         f"untimed counted solve {first:.3f} s, launches {counts}")
     if walls:
         wall = min(walls)
         say(f"{label}: wall per solve {wall:.4f} s (min of {[round(w, 4) for w in walls]}), "
-            f"iter/s {(result.iterations - 1) / wall:.3f} ((n_iter-1)/wall)")
+            f"iter/s {(result.iterations - 1) / wall:.3f} ((n_iter-1)/wall); timed solves "
+            f"repeat the objective bit for bit: {counts['repeats_bitwise']}")
+    if repeat and not (walls and counts["repeats_bitwise"]):
+        raise AssertionError(f"{label}: a solve from the same state did not repeat bit for bit")
     return result, counts
 
 
@@ -441,13 +544,21 @@ def _to_cpu(obj):
     })
 
 
-def phase_ld(iface):
+def _first_kkt(iface):
+    """The flagship's first-iteration KKT and rhs (initial state, initial
+    barrier)."""
     import parapint_tpu_torch as ptt
 
     state0 = iface.init_state()
     mu0 = torch.tensor(ptt.IPOptions().init_barrier_parameter, dtype=torch.float64, device=iface.device)
     data = iface.kkt_from_ad(state0, iface.eval_ad(state0), mu0)
-    kkt, rhs = iface.assemble_kkt(data, 0.0, 0.0), iface.kkt_rhs(data)
+    return iface.assemble_kkt(data, 0.0, 0.0), iface.kkt_rhs(data)
+
+
+def phase_ld(iface):
+    import parapint_tpu_torch as ptt
+
+    kkt, rhs = _first_kkt(iface)
     solver = ptt.SchurComplementSolver(block_size=128)
     _reset_counts()
     fact = solver.numeric(kkt)
@@ -470,7 +581,64 @@ def phase_ld(iface):
         raise AssertionError(f"LD mode: solutions differ by {dx}")
     if c["K2"] != LD_K2_PER_NUMERIC or c["K5"] != SC_PANELS_PER_NUMERIC:
         raise AssertionError(f"LD mode: K2 {c['K2']} K5 {c['K5']} launches for one numeric")
-    return c
+    return c, fact.block_LD
+
+
+def phase_column(iface, slab, slab_LD):
+    """``PT_PANEL_ALGO=column`` sends every float32 panel to the
+    column-by-column entries: K3 and K4 run the same kernel instantiations as
+    K1 and K2, so the dense flagship and the LD-mode factor must repeat the
+    slab runs bit for bit.  Then a block_size of 100 sends the block panels
+    to K3 under the default algorithm."""
+    import parapint_tpu_torch as ptt
+
+    before = os.environ.get("PT_PANEL_ALGO")
+    os.environ["PT_PANEL_ALGO"] = "column"
+    try:
+        _, c = _counted_solve(iface, _dense_solver("cr"), "column dense flagship")
+        print(f"column dense flagship: iterations {c['iterations']} objective {c['objective']!r} "
+              f"(slab run: {slab['iterations']} {slab['objective']!r})")
+        if not (c["K3"] > 0 and c["K3"] == DENSE_K1_PER_NUMERIC * c["numerics"] and c["K1"] == 0):
+            raise AssertionError(f"column: K3 {c['K3']} K1 {c['K1']} launches for {c['numerics']} numerics")
+        if (c["iterations"], c["objective"]) != (slab["iterations"], slab["objective"]):
+            raise AssertionError("column: the dense flagship differs from the slab run")
+        kkt, rhs = _first_kkt(iface)
+        _reset_counts()
+        fact = ptt.SchurComplementSolver(block_size=128).numeric(kkt)
+        torch.cuda.synchronize()
+        c_ld = _counts()
+        same = torch.equal(fact.block_LD, slab_LD)
+        say(f"column LD mode first KKT: launches {c_ld}, LD equal to the slab run's bit for bit: {same}")
+        if c_ld["K4"] != LD_K2_PER_NUMERIC or c_ld["K2"] != 0 or not same:
+            raise AssertionError(f"column LD mode: K4 {c_ld['K4']} K2 {c_ld['K2']} equal {same}")
+        del fact
+    finally:
+        if before is None:
+            os.environ.pop("PT_PANEL_ALGO")
+        else:
+            os.environ["PT_PANEL_ALGO"] = before
+
+    def w100():
+        return ptt.SchurComplementSolver(
+            block_size=100, explicit_inverse=True, factor_dtype=torch.float32,
+            schur_complement_solver=ptt.BlockTridiagSolver(),
+        )
+
+    _reset_counts()
+    fact = w100().numeric(kkt)
+    torch.cuda.synchronize()
+    c100 = _counts()
+    fact_p = w100().numeric(_to_cpu(kkt))
+    inert_k = tuple(int(v) for v in fact.inertia.cpu())
+    inert_p = tuple(int(v) for v in fact_p.inertia)
+    status = (int(fact.status), int(fact_p.status))
+    say(f"block_size=100 W-form numeric of the first KKT: inertia card {inert_k} cpu {inert_p}, "
+        f"status {status}, launches {c100}")
+    if c100["K3"] != W100_K3_PER_NUMERIC or c100["K1"] != W100_K1_PER_NUMERIC:
+        raise AssertionError(f"block_size=100: K3 {c100['K3']} K1 {c100['K1']} launches")
+    if inert_k != inert_p or status != (0, 0):
+        raise AssertionError("block_size=100: inertia or status differs between card and CPU")
+    return c, c_ld
 
 
 def phase_banded():
@@ -494,6 +662,132 @@ def phase_banded():
     return c
 
 
+def _timer_lines(timer, depth=3):
+    """The timer's phases down to ``depth`` levels, as one line."""
+    out = []
+
+    def walk(node, prefix, level):
+        for name, child in node.children.items():
+            out.append(f"{prefix}{name} {child.total:.3f} s (n={child.count})")
+            if level < depth:
+                walk(child, prefix + name + "/", level + 1)
+
+    walk(timer._root, "", 1)
+    return "; ".join(out)
+
+
+def phase_stochastic_qp(device="cuda", shape=QP, ref=QP_JAX_OBJECTIVE,
+                        ref_iters=(QP_JAX_ITERATIONS, QP_JAX_IP_ITERATIONS)):
+    """The two-stage stochastic QP through both drivers.  The float32 KKT
+    with a float64 factor makes ``check_precision_compat`` warn, as it does
+    in the JAX package for the same configuration."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import stochastic
+    from parapint_tpu_torch.utils.timer import HierarchicalTimer
+
+    def solver():
+        return ptt.SchurComplementSolver(
+            block_size=128, explicit_inverse=True, factor_dtype=torch.float64,
+            apply_dtype=torch.float32,
+        )
+
+    def kernels_ok(c, label):
+        panels = {k: c[k] for k in ("K1", "K2", "K3", "K4")}
+        if not (c["K6"] > 0 and c["K6"] == 2 * c["solves"] and c["K5"] == c["numerics"] > 0
+                and not any(panels.values())):
+            raise AssertionError(f"{label}: launches {c}")
+
+    t0 = time.perf_counter()
+    iface = ptt.StochasticSchurComplementInteriorPointInterface(
+        stochastic.qp_spec(**shape, device=device), kkt_dtype=torch.float32
+    )
+    print(f"stochastic QP {shape}: nk {iface.nk} ncv {iface.ncv} blocks {iface.N} "
+          f"setup {time.perf_counter() - t0:.2f} s")
+    result, c = _counted_solve(iface, solver(), "stochastic QP fused", timed=1, ref=ref, repeat=True)
+    print(f"stochastic QP fused: iterations {c['iterations']} (JAX {ref_iters[0]}); "
+          f"K5 {c['K5']} for {c['numerics']} numerics, K6 {c['K6']} for {c['solves']} back solves")
+    kernels_ok(c, "stochastic QP fused")
+    if abs(c["iterations"] - ref_iters[0]) > 1:
+        raise AssertionError(f"stochastic QP fused: {c['iterations']} iterations, JAX {ref_iters[0]}")
+
+    s = solver()
+    opts = ptt.IPOptions()
+    opts.tol = TOL
+    opts.linalg.solver = s
+    timer = HierarchicalTimer()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = ptt.ip_solve(iface, opts, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c_ip = _counts()
+    c_ip["numerics"], c_ip["solves"] = s.n_numeric, s.n_solves
+    n_iter = timer._root.children["IP solve"].children["convergence check"].count
+    obj = float(iface.evaluate_objective())
+    gap = abs(obj - ref) / max(1.0, abs(ref))
+    say(f"stochastic QP ip_solve: status {status.name}, iterations {n_iter} (JAX {ref_iters[1]}), "
+        f"objective {obj!r} (JAX {ref!r}, rel gap {gap:.3e}), wall {wall:.4f} s, "
+        f"K5 {c_ip['K5']} for {c_ip['numerics']} numerics, K6 {c_ip['K6']} for "
+        f"{c_ip['solves']} back solves, launches {c_ip}")
+    say(f"stochastic QP ip_solve phases: {_timer_lines(timer)}")
+    if status != ptt.InteriorPointStatus.optimal or gap > OBJ_REL_GAP:
+        raise AssertionError(f"stochastic QP ip_solve: {status.name}, gap {gap}")
+    if abs(n_iter - ref_iters[1]) > 1:
+        raise AssertionError(f"stochastic QP ip_solve: {n_iter} iterations, JAX {ref_iters[1]}")
+    kernels_ok(c_ip, "stochastic QP ip_solve")
+    return c, c_ip
+
+
+def phase_farmer(device="cuda", family_ref=(FARMER32_JAX_OBJECTIVE, FARMER32_JAX_ITERATIONS),
+                 n_scenarios=32):
+    """The farmer through ``examples/stochastic.main`` (``ip_solve``) and the
+    farmer family through the fused driver."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import stochastic
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    acre = stochastic.main(device=device).get_first_stage_values().cpu().numpy()
+    wall = time.perf_counter() - t0
+    err = float(np.abs(acre - np.asarray(FARMER_ACRES)).max())
+    say(f"farmer (examples/stochastic.main): acreage {acre.tolist()}, max|d| to "
+        f"{FARMER_ACRES} {err:.3e} (tol {FARMER_ATOL}), wall {wall:.3f} s, launches {_counts()}")
+    if not err <= FARMER_ATOL:
+        raise AssertionError(f"farmer: acreage {acre.tolist()}")
+    iface = ptt.StochasticSchurComplementInteriorPointInterface(
+        stochastic.farmer_family(num_scenarios=n_scenarios, device=device)
+    )
+    solver = ptt.SchurComplementSolver(block_size=64, explicit_inverse=True)
+    _, c = _counted_solve(iface, solver, "farmer family", timed=1, ref=family_ref[0],
+                          tol=ptt.IPOptions().tol, repeat=True)
+    if abs(c["iterations"] - family_ref[1]) > 1:
+        raise AssertionError(f"farmer family: {c['iterations']} iterations, JAX {family_ref[1]}")
+    return c
+
+
+def phase_single(device="cuda"):
+    """The single-NLP examples through ``ip_solve``."""
+    from parapint_tpu_torch.examples import dynamics, interior_point
+
+    t0 = time.perf_counter()
+    x = interior_point.main(device=device).get_primals().cpu().numpy()
+    wall = time.perf_counter() - t0
+    err = float(np.abs(x - np.array([0.0, 1.0])).max())
+    say(f"interior_point example: x {x.tolist()}, max|d| to (0, 1) {err:.3e} (tol 1e-7), "
+        f"wall {wall:.3f} s")
+    if not err <= 1e-7:
+        raise AssertionError(f"interior_point example: x {x.tolist()}")
+    t0 = time.perf_counter()
+    _, _, p = dynamics.main(device=device)
+    wall = time.perf_counter() - t0
+    err = float(np.abs(p[: len(DYNAMICS_GOLDEN_P)] - np.asarray(DYNAMICS_GOLDEN_P)).max())
+    say(f"dynamics example: p(t)[:9] max|d| to the golden values {err:.3e} (tol 1e-6), "
+        f"wall {wall:.3f} s")
+    if not err <= 1e-6:
+        raise AssertionError(f"dynamics example: p(t) {p.tolist()}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -508,19 +802,24 @@ def main():
     dense = phase_dense(iface)
     dense_sc = phase_dense_sc(iface)
     phase_bf16(iface)
-    ld = phase_ld(iface)
-    del iface
+    ld, ld_LD = phase_ld(iface)
+    column, column_ld = phase_column(iface, dense, ld_LD)
+    del iface, ld_LD
     torch.cuda.empty_cache()
+    phase_stochastic_qp()
+    torch.cuda.empty_cache()
+    phase_farmer()
+    phase_single()
     banded = phase_banded()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
+    src = "parapint_tpu_torch/csrc/ldl_panel_winv.cu"
     rows = [
-        ("K1", "ldl_panels_slab_winv", "parapint_tpu_torch/csrc/ldl_panel_winv.cu",
-         "parapint_tpu/ops/pallas_ldl.py:408", dense["K1"]),
-        ("K2", "ldl_panels_slab", "parapint_tpu_torch/csrc/ldl_panel_winv.cu",
-         "parapint_tpu/ops/pallas_ldl.py:364", ld["K2"]),
-        ("K5", "ldl_panels", "parapint_tpu_torch/csrc/ldl_panel_winv.cu",
-         "parapint_tpu/ops/pallas_ldl.py:583", dense_sc["K5"]),
+        ("K1", "ldl_panels_slab_winv", src, "parapint_tpu/ops/pallas_ldl.py:408", dense["K1"]),
+        ("K2", "ldl_panels_slab", src, "parapint_tpu/ops/pallas_ldl.py:364", ld["K2"]),
+        ("K3", "ldl_panels_batched_winv", src, "parapint_tpu/ops/pallas_ldl.py:495", column["K3"]),
+        ("K4", "ldl_panels_batched", src, "parapint_tpu/ops/pallas_ldl.py:554", column_ld["K4"]),
+        ("K5", "ldl_panels", src, "parapint_tpu/ops/pallas_ldl.py:583", dense_sc["K5"]),
         ("K6", "winv_apply_fused", "parapint_tpu_torch/csrc/winv_apply.cu",
          "parapint_tpu/ops/winv_apply.py:138", dense["K6"]),
     ]

@@ -36,13 +36,18 @@ from parapint_tpu_torch.linalg import (  # noqa: E402
     LinearSolverStatus,
     SchurComplementSolver,
 )
+from parapint_tpu_torch.models import NLPModel  # noqa: E402
 from parapint_tpu_torch.interfaces import (  # noqa: E402
     DynamicModelSpec,
     DynamicSchurComplementInteriorPointInterface,
+    InteriorPointInterface,
+    StochasticModelSpec,
+    StochasticSchurComplementInteriorPointInterface,
 )
 from parapint_tpu_torch.algorithms import (  # noqa: E402
     FusedResult,
     InteriorPointStatus,
+    ip_solve,
     ip_solve_fused,
     make_fused_ip_solve,
 )
@@ -62,10 +67,15 @@ __all__ = [
     "DenseLDLSolver",
     "DenseLUSolver",
     "SchurComplementSolver",
+    "NLPModel",
+    "InteriorPointInterface",
     "DynamicModelSpec",
     "DynamicSchurComplementInteriorPointInterface",
+    "StochasticModelSpec",
+    "StochasticSchurComplementInteriorPointInterface",
     "FusedResult",
     "InteriorPointStatus",
+    "ip_solve",
     "ip_solve_fused",
     "make_fused_ip_solve",
 ]

@@ -48,8 +48,9 @@ SPEC_ARRAYS = ("x0", "xl", "xu", "gl", "gu", "eq_mask", "ineq_mask", "x_mask")
 
 def spec_arrays_from_numpy(spec, device) -> dict:
     """Keyword arguments ``params``, ``x0``, the bounds and the masks of a
-    JAX ``DynamicModelSpec`` (or any object with those attributes) as
-    tensors on ``device``, ready for the port's ``DynamicModelSpec``."""
+    JAX ``DynamicModelSpec`` or ``StochasticModelSpec`` (or any object with
+    those attributes) as tensors on ``device``, ready for the port's spec of
+    the same name."""
     out = {
         "params": {
             k: torch.as_tensor(np.array(v), device=device) for k, v in spec.params.items()

@@ -1,13 +1,23 @@
 // Batched unpivoted LDL^T of symmetric f32 panels, with or without
-// W = L^{-1}: one kernel template, two instantiations, three entries.
+// W = L^{-1}: one kernel template, two instantiations, five entries.
 //
 // Replaces the TPU kernels of parapint_tpu/ops/pallas_ldl.py:
 //   kWithW = true   ldl_panels_slab_winv (_make_slab_kernel(with_w=True)),
 //                   b % 8 == 0, b <= 128                         [K1]
+//                   ldl_panels_batched_winv (_panel_kernel_batched_winv),
+//                   any 1 <= b <= 128                            [K3]
 //   kWithW = false  ldl_panels_slab      (_make_slab_kernel(with_w=False)),
 //                   b % 8 == 0, b <= 128                         [K2]
+//                   ldl_panels_batched   (_panel_kernel_batched), any
+//                   1 <= b <= 128                                [K4]
 //                   ldl_panels           (_panel_kernel), any 1 <= b <= 128
 //                                                                [K5]
+// The Pallas kernels differ in how they block the sweep (8-column slabs
+// for K1/K2, one column per step for K3/K4/K5) and in how many panels one
+// grid step holds (a batch chunk, for the TPU's single core); their function
+// on the lower triangle is the same, and this kernel computes it column by
+// column for every entry.  Nothing here needs b % 8 == 0: indexing is by b,
+// and rows are padded to an odd stride whatever b is.
 // Contract, identical to the Pallas kernels' on the lower triangle:
 //   in   A  (B, b, b) f32, row-major, symmetric up to roundoff; only the
 //            LOWER triangle is read (the factor follows the true pivot
@@ -161,13 +171,13 @@ extern "C" {
 // Launch one CTA per panel on `stream`; each returns cudaGetLastError() as
 // an int (0 = launched).  Neither synchronises.
 
-// LD and W = L^{-1} of (B, b, b) panels (K1).
+// LD and W = L^{-1} of (B, b, b) panels (K1 and K3).
 int ldl_panel_winv_f32(const float* A, float* LD, float* W, int B, int b,
                        void* stream) {
   return launch<true>(A, LD, W, B, b, stream);
 }
 
-// LD only (K2 and K5).
+// LD only (K2, K4 and K5).
 int ldl_panel_f32(const float* A, float* LD, int B, int b, void* stream) {
   return launch<false>(A, LD, nullptr, B, b, stream);
 }

@@ -15,7 +15,8 @@ into blocks coupled through the interior y values at block boundaries.
 import numpy as np
 import torch
 
-from parapint_tpu_torch.interfaces.dynamic import DynamicModelSpec, require_device
+from parapint_tpu_torch.interfaces.dynamic import DynamicModelSpec
+from parapint_tpu_torch.utils.device import require_device
 
 OMEGA = 0.02
 V = 0.01
@@ -106,3 +107,52 @@ def build_spec(
         end_state_idx=nt * npts + interior,
         device=device,
     )
+
+
+def main(
+    nfe_x: int = 50,
+    nfe_t: int = 200,
+    num_time_blocks: int = 4,
+    linear_solver=None,
+    options=None,
+    block_form: str = "dense",
+    device="cuda",
+):
+    """Solve through ``ip_solve``.  ``block_form="banded"`` routes the
+    per-block KKTs through the banded factorization (O(nk * bandwidth)
+    memory per block), which the reference's ``--nfe_x`` beyond ~100 needs
+    (reference burgers.py:14-20)."""
+    import parapint_tpu_torch as ptt
+
+    spec = build_spec(nfe_x=nfe_x, nfe_t=nfe_t, num_time_blocks=num_time_blocks, device=device)
+    interface = ptt.DynamicSchurComplementInteriorPointInterface(spec, block_form=block_form)
+    if options is None:
+        options = ptt.IPOptions()
+    if linear_solver is not None:
+        options.linalg.solver = linear_solver
+    elif block_form == "banded":
+        options.linalg.solver = ptt.BandedSchurComplementSolver(
+            schur_complement_solver=ptt.BlockTridiagSolver(ns=interface.ns)
+        )
+    else:
+        options.linalg.solver = ptt.SchurComplementSolver(block_size=128)
+    status = ptt.ip_solve(interface, options)
+    if status != ptt.InteriorPointStatus.optimal:
+        raise RuntimeError(f"burgers: ip_solve ended with {status}")
+    return interface
+
+
+if __name__ == "__main__":
+    import argparse
+    import logging
+
+    logging.basicConfig(level=logging.INFO)
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--nfe_x", type=int, default=50)
+    parser.add_argument("--nfe_t", type=int, default=200)
+    parser.add_argument("--nblocks", type=int, default=4)
+    parser.add_argument("--block_form", choices=("dense", "banded"), default="dense")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args()
+    iface = main(args.nfe_x, args.nfe_t, args.nblocks, block_form=args.block_form, device=args.device)
+    print("objective:", float(iface.evaluate_objective()))

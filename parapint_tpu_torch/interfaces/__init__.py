@@ -1,14 +1,24 @@
-"""Interior-point interfaces: function evaluation + KKT assembly."""
+"""Interior-point interfaces: function evaluation + KKT assembly (the
+single-NLP interface and the dynamic / stochastic Schur-complement
+interfaces)."""
 
 from parapint_tpu_torch.interfaces.base import Bounds, IPState
 from parapint_tpu_torch.interfaces.dynamic import (
     DynamicModelSpec,
     DynamicSchurComplementInteriorPointInterface,
 )
+from parapint_tpu_torch.interfaces.single import InteriorPointInterface
+from parapint_tpu_torch.interfaces.stochastic import (
+    StochasticModelSpec,
+    StochasticSchurComplementInteriorPointInterface,
+)
 
 __all__ = [
     "IPState",
     "Bounds",
+    "InteriorPointInterface",
     "DynamicModelSpec",
     "DynamicSchurComplementInteriorPointInterface",
+    "StochasticModelSpec",
+    "StochasticSchurComplementInteriorPointInterface",
 ]

@@ -5,7 +5,12 @@ N uniform NLP blocks, a vector c of coupling variables, and per-block
 linear linking rows ``x_b[sel_j] - c[row_idx[b, j]] = 0`` whose dual rows
 live inside the block's KKT block and whose coupling columns form the
 block-local border.  Per-block KKT layout: [x(n), s(mi), y_eq(me),
-y_ineq(mi), lambda(n_link)] (:func:`blocked.sub_kkt_layout`).
+y_ineq(mi), lambda(n_link)] (:func:`blocked.sub_kkt_layout`).  The link
+topology (``sc_assembly``) is "chain" for the dynamic interface (block i
+couples groups i-1 and i), "shared" for the stochastic one (every block
+links the same coupling rows 0..L-1) and "scatter" for any other
+``row_idx``; the coupling gather and the scatter of the link duals follow
+it.
 
 Dense mode (the default) materializes each block's Hessian of the
 Lagrangian and constraint Jacobians and assembles dense (N, nk, nk) blocks
@@ -46,8 +51,10 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
     """Shared implementation; see module docstring.
 
     Subclass responsibilities (before calling ``_finalize``):
-      self.device, self.N, self.n, self.me, self.mi, self.ns, self.n_link,
-      self.ncv, self.fns (BatchedNLPFunctions), self.params (dict of tensors)
+      self.device, self.N, self.n, self.me, self.mi, self.n_link, self.ncv
+      (and self.ns for the chain topology), self.sc_assembly ("chain",
+      "shared" or "scatter", the default),
+      self.fns (BatchedNLPFunctions), self.params (dict of tensors)
       self.eq_mask / ineq_mask / x_mask  (bool tensors, (N, dim))
       self.link_sel (n_link,) numpy int, selected x index of each link row
       self.link_mask (N, n_link) float64, self.row_idx (N, n_link) int64
@@ -58,10 +65,9 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
     def _finalize(self, kkt_dtype=None, block_form: str = "dense"):
         if block_form not in ("dense", "banded"):
             raise ValueError(f"unknown block_form {block_form!r}")
-        if not self._chain_links:
-            raise NotImplementedError("only the time-chain link topology is ported")
         self.block_form = block_form
-        self.sc_assembly = "chain"
+        if not hasattr(self, "sc_assembly"):
+            self.sc_assembly = "scatter"
         # kkt_dtype: the probed KKT matrix data is evaluated in this dtype;
         # everything convergence-critical stays float64
         self.kkt_dtype = kkt_dtype
@@ -305,19 +311,29 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
             duals_slacks_ub=vu,
         )
 
-    # -- link helpers (time-chain topology) ------------------------------------
+    # -- link helpers ------------------------------------------------------------
 
     @property
     def _chain_links(self) -> bool:
+        """Chain topology with the [bwd(ns), fwd(ns)] link layout: the
+        coupling gather and scatter are shifted contiguous slices."""
         ns = getattr(self, "ns", 0)
-        return ns > 0 and self.n_link == 2 * ns and self.ncv == (self.N - 1) * ns
+        return (
+            self.sc_assembly == "chain"
+            and ns > 0
+            and self.n_link == 2 * ns
+            and self.ncv == (self.N - 1) * ns
+        )
 
     def _gather_coupling(self, c):
-        """c values seen by each block's link rows: (N, n_link); backward
-        rows of block b read group b-1, forward rows group b."""
-        z = c.new_zeros((1, self.ns))
-        ext = torch.cat([z, c.reshape(-1, self.ns), z], dim=0)
-        return torch.cat([ext[: self.N], ext[1 : self.N + 1]], dim=1)
+        """c values seen by each block's link rows: (N, n_link).  Chain:
+        backward rows of block b read group b-1, forward rows group b; any
+        other topology reads c[row_idx] (the dump index ncv reads 0)."""
+        if self._chain_links:
+            z = c.new_zeros((1, self.ns))
+            ext = torch.cat([z, c.reshape(-1, self.ns), z], dim=0)
+            return torch.cat([ext[: self.N], ext[1 : self.N + 1]], dim=1)
+        return torch.cat([c, c.new_zeros(1)])[self.row_idx]
 
     def _link_duals(self, duals_eq):
         return duals_eq["link"] * self.link_mask
@@ -328,11 +344,20 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         return (lx - self._gather_coupling(c) * self.link_mask) * self.link_mask
 
     def _scatter_link_duals_to_coupling(self, duals_eq):
-        """group g collects the forward duals of block g and the backward
-        duals of block g+1."""
+        """The link duals summed onto their coupling rows, (ncv,).  Chain:
+        group g collects the forward duals of block g and the backward duals
+        of block g+1; shared: rows 0..n_link-1 sum over the blocks, in a fixed
+        order (``index_add_`` on the card adds in any order, so solves would
+        not repeat bit for bit); scatter adds each dual at its row_idx."""
         lam = self._link_duals(duals_eq)
-        ns = self.ns
-        return (lam[: self.N - 1, ns:] + lam[1:, :ns]).reshape(self.ncv)
+        if self._chain_links:
+            ns = self.ns
+            return (lam[: self.N - 1, ns:] + lam[1:, :ns]).reshape(self.ncv)
+        if self.sc_assembly == "shared":
+            return torch.nn.functional.pad(lam.sum(0), (0, self.ncv - self.n_link))
+        out = lam.new_zeros(self.ncv + 1)
+        out.index_add_(0, self.row_idx.reshape(-1), lam.reshape(-1))
+        return out[: self.ncv]
 
     def _grad_lag_primals(self, state, grad_f, jtlam, jac_eq=None, jac_ineq=None):
         """grad f + J^T y + link rows^T lam; ``jtlam`` None contracts the
@@ -424,6 +449,19 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         return self._kkt_core(state, self.bounds, ad, barrier)
 
     # -- convergence -------------------------------------------------------------
+
+    def convergence_info(self, state, barrier, error_scaling=100.0):
+        """The convergence numbers of ``state`` by their own AD sweep (the
+        Python-loop ``ip_solve``'s check; the fused solve shares one sweep
+        between check and KKT through :meth:`eval_ad`).  The dual
+        contraction is the exact float64 VJP, as in the reference."""
+        fns = self.fns
+        args = (state.primals["blocks"], self.params, self.x_mask)
+        return self._convergence_core(
+            state, self.bounds, fns.total_objective(*args), fns.grad_f(*args),
+            self._jtprod(state), fns.c_eq(*args, self.eq_mask),
+            fns.c_ineq(*args, self.ineq_mask), barrier, error_scaling,
+        )
 
     def _convergence_core(
         self, state, bounds, obj, grad_f, jtlam, c_eq, c_ineq, barrier, error_scaling,

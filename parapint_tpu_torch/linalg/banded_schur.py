@@ -326,7 +326,7 @@ class BandedSchurComplementSolver(LinearSolver):
             sc_rhs = rhs.coupling - _border_apply_chain(fact.border_loc, v, fact.nc)
         else:
             sc_rhs = rhs.coupling - _border_apply_local(
-                fact.border_loc, fact.row_idx, v, fact.nc
+                fact.border_loc, fact.row_idx, v, fact.nc, fact.assembly
             )
         # coupling solve at the factor precision; the refinement loop owns
         # the working-precision accuracy
@@ -361,7 +361,7 @@ class BandedSchurComplementSolver(LinearSolver):
             cy = _border_apply_chain(border_loc, xb, fact.nc)
         else:
             bx = bx + _border_T_apply_local(border_loc, fact.row_idx, xc)
-            cy = _border_apply_local(border_loc, fact.row_idx, xb, fact.nc)
+            cy = _border_apply_local(border_loc, fact.row_idx, xb, fact.nc, fact.assembly)
         cy = cy + (q.to(cy.dtype) @ xc.to(cy.dtype))
         return BlockRhs(blocks=bx, coupling=cy)
 

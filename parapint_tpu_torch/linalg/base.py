@@ -41,3 +41,9 @@ class LinearSolver(ABC):
         """Back solve, returning ``(solution, status)``; direct solvers
         report the factorization status."""
         return self.solve(fact, rhs), self.status(fact)
+
+    def increase_memory_allocation(self, factor: float) -> None:
+        """The reference's reallocation hook, called by ``ip_solve`` when a
+        numeric factorization reports ``not_enough_memory``.  The port's
+        solvers allocate per call and never report it, so this does
+        nothing."""

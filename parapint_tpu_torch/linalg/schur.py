@@ -348,9 +348,13 @@ def _tridiag_sc_capable(sc_solver, kkt) -> bool:
     return ns > 0 and nc > 0 and nc % ns == 0
 
 
-def _border_apply_local(border_loc, row_idx, v, nc: int):
-    """sum_i P_i A_i v_i -> (nc,)"""
+def _border_apply_local(border_loc, row_idx, v, nc: int, assembly: str = "scatter"):
+    """sum_i P_i A_i v_i -> (nc,).  The shared topology (every block on rows
+    0..L-1) sums over the blocks in a fixed order; ``index_add_`` on the card
+    adds in any order."""
     contrib = (border_loc.to(v.dtype) @ v[:, :, None])[..., 0]
+    if assembly == "shared":
+        return torch.nn.functional.pad(contrib.sum(0), (0, nc - contrib.shape[1]))
     out = torch.zeros(nc + 1, dtype=v.dtype, device=v.device)
     out.index_add_(0, row_idx.reshape(-1).long(), contrib.reshape(-1))
     return out[:nc]
@@ -417,7 +421,7 @@ def _kkt_matvec(fact: SchurFactor, x: BlockRhs, dtype=None) -> BlockRhs:
         cy = _border_apply_chain(border_loc, xb, fact.nc)
     elif border_loc is not None:
         bx = bx + _border_T_apply_local(border_loc, fact.row_idx, xc)
-        cy = _border_apply_local(border_loc, fact.row_idx, xb, fact.nc)
+        cy = _border_apply_local(border_loc, fact.row_idx, xb, fact.nc, fact.assembly)
     else:
         bd = border.to(xb.dtype)
         bx = bx + torch.einsum("bci,c->bi", bd, xc.to(xb.dtype))
@@ -624,7 +628,7 @@ class SchurComplementSolver(LinearSolver):
                 sc_rhs = rhs.coupling - _border_apply_chain(fact.border_loc, v, fact.nc)
             elif local:
                 sc_rhs = rhs.coupling - _border_apply_local(
-                    fact.border_loc, fact.row_idx, v, fact.nc
+                    fact.border_loc, fact.row_idx, v, fact.nc, fact.assembly
                 )
             else:
                 sc_rhs = rhs.coupling - torch.einsum("bci,bi->c", fact.border.to(v.dtype), v)

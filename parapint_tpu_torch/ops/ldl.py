@@ -5,8 +5,10 @@ Unpivoted LDL^T with 1x1 pivots, right-looking over panels.  Each panel is
 factored by one of the panel kernel's entries
 (:mod:`parapint_tpu_torch.ops.ldl_panel`; the CUDA kernel for f32 CUDA
 tensors, its plain version on the CPU): ``ldl_panels`` for the single-matrix
-:func:`ldl_factor`, ``ldl_panels_slab`` for :func:`ldl_factor_batched` and
-``ldl_panels_slab_winv`` for :func:`ldl_factor_winv_batched`.  Panel solves
+:func:`ldl_factor`, ``ldl_panels_slab`` (or ``ldl_panels_batched``) for
+:func:`ldl_factor_batched` and ``ldl_panels_slab_winv`` (or
+``ldl_panels_batched_winv``) for :func:`ldl_factor_winv_batched`, as
+``PT_PANEL_ALGO`` and the panel width select (:func:`_slab_algo`).  Panel solves
 and trailing updates are (batched) matmuls; solves use
 ``torch.linalg.solve_triangular`` or the explicit-inverse W form.  Inverses
 use the block-recursive form, never Neumann doubling
@@ -15,11 +17,15 @@ on the Burgers chain Schur complements).  Functions take any leading batch
 dimensions where the reference ``vmap``s them.
 """
 
+import os
+
 import torch
 
 from parapint_tpu_torch.ops.ldl_panel import (
     MAX_PANEL,
     ldl_panels,
+    ldl_panels_batched,
+    ldl_panels_batched_winv,
     ldl_panels_slab,
     ldl_panels_slab_winv,
 )
@@ -150,38 +156,42 @@ def _panel_factor(Akk: torch.Tensor) -> torch.Tensor:
     return _ldl_unblocked(Akk)
 
 
-def _panel_factor_batch(Akk: torch.Tensor) -> torch.Tensor:
-    """Batched packed LDL^T of (N, b, b) panels: f32 panels up to 128 wide
-    with b % 8 == 0 go to the ``ldl_panels_slab`` entry; f64 and wider
-    panels take the column sweep, as the reference's XLA path does."""
+def _slab_algo() -> bool:
+    """Panel-algorithm selection, as the reference's ``_use_slab_kernel``:
+    ``PT_PANEL_ALGO`` "slab" (the default) or "slab2" picks the slab entries
+    for panel widths that are a multiple of 8; "column", and every other
+    width, picks the column-by-column batched entries.  "slab2" is the
+    reference's rank-2 form of the slab kernel, bitwise equal to the rank-1
+    form, so it maps to the same entries.  Read once per factorization by
+    :func:`_batched_sweep`: the port keeps no trace cache, so a change takes
+    effect at the next factorization."""
+    return os.environ.get("PT_PANEL_ALGO", "slab") in ("slab", "slab2")
+
+
+def _panel_factor_batch(Akk: torch.Tensor, slab_algo: bool) -> torch.Tensor:
+    """Batched packed LDL^T of (N, b, b) panels: f32 panels up to 128 wide go
+    to ``ldl_panels_slab`` (``slab_algo`` and b % 8 == 0, see
+    :func:`_slab_algo`) or ``ldl_panels_batched``; f64 and wider panels take
+    the column sweep, as the reference's XLA path does."""
     b = Akk.shape[-1]
     if Akk.dtype == torch.float32 and b <= MAX_PANEL:
-        if b % 8 == 0:
-            return ldl_panels_slab(Akk.contiguous())
-        if Akk.is_cuda:
-            raise NotImplementedError(
-                f"{b}-wide float32 panels need the column-by-column batched panel "
-                "kernel (ldl_panels_batched), not ported yet (ROADMAP B5)"
-            )
+        entry = ldl_panels_slab if slab_algo and b % 8 == 0 else ldl_panels_batched
+        return entry(Akk.contiguous())
     return _ldl_unblocked(Akk)
 
 
-def _panel_factor_batch_winv(Akk: torch.Tensor):
+def _panel_factor_batch_winv(Akk: torch.Tensor, slab_algo: bool):
     """Batched panel factorization + panel inverse W = L^{-1}.
 
-    f32 panels with b % 8 == 0 and b <= 128 go to the ``ldl_panels_slab_winv``
-    entry (kernel on CUDA, plain version on the CPU); other dtypes (the
-    f64 reference runs) use the column sweep plus the recursive inverse,
-    as the reference's non-Pallas path does."""
+    f32 panels up to 128 wide go to ``ldl_panels_slab_winv`` (``slab_algo``
+    and b % 8 == 0) or ``ldl_panels_batched_winv`` (kernel on CUDA, plain
+    version on the CPU); other dtypes (the f64 reference runs) use the
+    column sweep plus the recursive inverse, as the reference's non-Pallas
+    path does."""
     b = Akk.shape[-1]
     if Akk.dtype == torch.float32 and b <= MAX_PANEL:
-        if b % 8 == 0:
-            return ldl_panels_slab_winv(Akk.contiguous())
-        if Akk.is_cuda:
-            raise NotImplementedError(
-                f"{b}-wide float32 panels need the column-by-column batched panel "
-                "kernel with W (ldl_panels_batched_winv), not ported yet (ROADMAP B6)"
-            )
+        entry = ldl_panels_slab_winv if slab_algo and b % 8 == 0 else ldl_panels_batched_winv
+        return entry(Akk.contiguous())
     F = _ldl_unblocked(Akk)
     eye = torch.eye(b, dtype=Akk.dtype, device=Akk.device)
     return F, unit_lower_inv(torch.tril(F, -1) + eye)
@@ -339,15 +349,17 @@ def _batched_sweep(A: torch.Tensor, block_size: int, panel_factor):
     UP to a multiple of 8 (the chain SC's 49-wide tiles factor as 56-wide
     panels) so f32 panels stay on the panel kernel, and the extra rows are
     identity padding.  ``panel_factor`` maps (N, b, b) panels to (packed
-    factor, L^{-1}).  Returns (LD padded to npad, block size, panel inverses)."""
+    factor, L^{-1}) and is told :func:`_slab_algo`, read once here.  Returns
+    (LD padded to npad, block size, panel inverses)."""
     N, n, _ = A.shape
+    slab_algo = _slab_algo()
     bs = min(block_size, _round_up(max(8, n), 8))
     npad = _round_up(max(n, 1), bs)
     T = _eye_pad(A, npad)
     LD = torch.zeros_like(T)
     leaves = []
     for o in range(0, npad, bs):
-        Fkk, Wkk = panel_factor(T[:, :bs, :bs])
+        Fkk, Wkk = panel_factor(T[:, :bs, :bs], slab_algo)
         leaves.append(Wkk)
         dk = torch.diagonal(Fkk, dim1=1, dim2=2)
         X = T[:, bs:, :bs] @ Wkk.transpose(1, 2)  # L21 * D
@@ -358,15 +370,15 @@ def _batched_sweep(A: torch.Tensor, block_size: int, panel_factor):
     return LD, bs, leaves
 
 
-def _panel_factor_batch_inv(Akk: torch.Tensor):
-    F = _panel_factor_batch(Akk)
+def _panel_factor_batch_inv(Akk: torch.Tensor, slab_algo: bool):
+    F = _panel_factor_batch(Akk, slab_algo)
     eye = torch.eye(Akk.shape[-1], dtype=Akk.dtype, device=Akk.device)
     return F, unit_lower_inv(torch.tril(F, -1) + eye)
 
 
 def ldl_factor_batched(A: torch.Tensor, block_size: int = 128):
     """Batched LDL^T: (N, n, n) -> (LD, d), padded to npad; the panels go to
-    the ``ldl_panels_slab`` entry (see :func:`_batched_sweep`)."""
+    :func:`_panel_factor_batch` (see :func:`_batched_sweep`)."""
     LD, _, _ = _batched_sweep(A, block_size, _panel_factor_batch_inv)
     return LD, torch.diagonal(LD, dim1=1, dim2=2)
 
@@ -394,8 +406,8 @@ def _winv_from_leaves(LD: torch.Tensor, leaves, lo: int, hi: int, bs: int):
 
 def ldl_factor_winv_batched(A: torch.Tensor, block_size: int = 128):
     """Batched LDL^T that also returns the global W = L^{-1}: (N, n, n) ->
-    (LD, d, W), all padded to npad.  The panel inverses come out of the
-    ``ldl_panels_slab_winv`` entry and W is assembled from them by
+    (LD, d, W), all padded to npad.  The panel inverses come out of
+    :func:`_panel_factor_batch_winv` and W is assembled from them by
     recursive halving."""
     LD, bs, leaves = _batched_sweep(A, block_size, _panel_factor_batch_winv)
     W = _winv_from_leaves(LD, leaves, 0, LD.shape[-1], bs)

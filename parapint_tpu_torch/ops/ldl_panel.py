@@ -1,5 +1,5 @@
 """Batched LDL^T panel factorizations (with and without W = L^{-1}): the CUDA
-kernel's three entries and their plain PyTorch versions.
+kernel's five entries and their plain PyTorch versions.
 
 Counterparts of ``parapint_tpu/ops/pallas_ldl.py``:
 
@@ -8,11 +8,18 @@ Counterparts of ``parapint_tpu/ops/pallas_ldl.py``:
 - :func:`ldl_panels_slab` — ``ldl_panels_slab`` (``with_w=False``), packed
   LDL^T, b % 8 == 0;
 - :func:`ldl_panels` — ``ldl_panels`` (``_panel_kernel``), packed LDL^T of
-  any width 1 <= b <= 128.
+  any width 1 <= b <= 128;
+- :func:`ldl_panels_batched_winv` — ``ldl_panels_batched_winv``
+  (``_panel_kernel_batched_winv``), packed LDL^T and W, any width;
+- :func:`ldl_panels_batched` — ``ldl_panels_batched``
+  (``_panel_kernel_batched``), packed LDL^T, any width.
 
-One kernel template serves all three, ``parapint_tpu_torch/csrc/ldl_panel_winv.cu``
-(``kWithW`` true for the first, false for the other two); its header says
-what bounds it on the card and how the design answers that.
+One kernel template serves all five, ``parapint_tpu_torch/csrc/ldl_panel_winv.cu``
+(``kWithW`` true for the two W entries, false for the other three); its
+header says what bounds it on the card and how the design answers that.
+The Pallas kernels' batch chunk (``chunk``, ``winv_max_chunk``) models the
+TPU's VMEM and has no counterpart: one CTA per panel spreads a batch over
+the SMs.
 
 Each wrapper takes its plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises, and adds one to its own
@@ -62,19 +69,22 @@ def _sweep(A: torch.Tensor, with_w: bool):
 
 
 def ldl_panels_slab_winv_plain(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`ldl_panels_slab_winv`: A (B, b, b) -> (LD, W),
-    LD packed (strict lower = unit L, diagonal = D, strict upper = 0).  Zero
-    pivots divide by 1."""
+    """Plain version of :func:`ldl_panels_slab_winv` and
+    :func:`ldl_panels_batched_winv`: A (B, b, b) -> (LD, W), LD packed
+    (strict lower = unit L, diagonal = D, strict upper = 0).  Zero pivots
+    divide by 1."""
     return _sweep(A, with_w=True)
 
 
 def ldl_panels_plain(A: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`ldl_panels` and :func:`ldl_panels_slab`:
-    A (B, b, b) -> packed LD."""
+    """Plain version of :func:`ldl_panels`, :func:`ldl_panels_slab` and
+    :func:`ldl_panels_batched`: A (B, b, b) -> packed LD."""
     return _sweep(A, with_w=False)[0]
 
 
 ldl_panels_slab_plain = ldl_panels_plain
+ldl_panels_batched_plain = ldl_panels_plain
+ldl_panels_batched_winv_plain = ldl_panels_slab_winv_plain
 
 
 def random_panels(B, b, seed, garbage_upper=False, zero_pivot=False) -> np.ndarray:
@@ -126,18 +136,31 @@ def _launch(name: str, A: torch.Tensor, *outs: torch.Tensor) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def ldl_panels_slab_winv(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, b, b) f32 symmetric panels -> (packed LD, W = L^{-1}); b % 8 == 0
-    and b <= 128.  CPU: the plain version; CUDA: the kernel on the current
-    stream (the call does not synchronise)."""
-    _check(A, multiple_of_8=True)
+def _w_entry(entry, A: torch.Tensor, multiple_of_8: bool):
+    """The shared body of the two W entries: check, then the plain version
+    on the CPU or one launch counted on ``entry``."""
+    _check(A, multiple_of_8)
     if A.device.type == "cpu":
         return ldl_panels_slab_winv_plain(A)
     LD, W = torch.empty_like(A), torch.empty_like(A)
     if A.shape[0]:
         _launch("ldl_panel_winv_f32", A, LD, W)
-        ldl_panels_slab_winv.launches += 1
+        entry.launches += 1
     return LD, W
+
+
+def ldl_panels_slab_winv(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, b, b) f32 symmetric panels -> (packed LD, W = L^{-1}); b % 8 == 0
+    and b <= 128.  CPU: the plain version; CUDA: the kernel on the current
+    stream (the call does not synchronise)."""
+    return _w_entry(ldl_panels_slab_winv, A, multiple_of_8=True)
+
+
+def ldl_panels_batched_winv(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, b, b) f32 symmetric panels -> (packed LD, W = L^{-1}); any
+    1 <= b <= 128 (the column-by-column entry: ``PT_PANEL_ALGO=column`` and
+    widths that are not a multiple of 8)."""
+    return _w_entry(ldl_panels_batched_winv, A, multiple_of_8=False)
 
 
 def _no_w_entry(entry, A: torch.Tensor, multiple_of_8: bool) -> torch.Tensor:
@@ -165,6 +188,14 @@ def ldl_panels(A: torch.Tensor) -> torch.Tensor:
     return _no_w_entry(ldl_panels, A, multiple_of_8=False)
 
 
-ldl_panels_slab_winv.launches = 0
-ldl_panels_slab.launches = 0
-ldl_panels.launches = 0
+def ldl_panels_batched(A: torch.Tensor) -> torch.Tensor:
+    """(B, b, b) f32 symmetric panels -> packed LD; any 1 <= b <= 128 (the
+    column-by-column batched factorization of ``ldl_factor_batched``)."""
+    return _no_w_entry(ldl_panels_batched, A, multiple_of_8=False)
+
+
+ENTRIES = (
+    ldl_panels_slab_winv, ldl_panels_slab, ldl_panels, ldl_panels_batched_winv, ldl_panels_batched,
+)
+for _entry in ENTRIES:
+    _entry.launches = 0

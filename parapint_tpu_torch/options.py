@@ -40,10 +40,25 @@ class InertiaCorrectionOptions:
 class LinalgOptions:
     """Linear-algebra options (reference interior_point.py:63-88).
 
-    ``solver`` holds a :class:`parapint_tpu_torch.linalg.LinearSolver`.
+    ``solver`` holds a :class:`parapint_tpu_torch.linalg.LinearSolver`.  The
+    reference's memory-reallocation retry (``reallocation_factor``,
+    ``max_num_reallocations``) is kept for ``ip_solve``; the port's solvers
+    allocate per call and never report ``not_enough_memory``.
+    ``max_num_reallocations`` counts factorization attempts, so it must be
+    at least 1 (``parapint_tpu`` accepts 0 here and fails at the first
+    factorization).
     """
 
     solver: Optional[object] = None
+    reallocation_factor: float = 2.0
+    max_num_reallocations: int = 5
+
+    def validate(self) -> None:
+        _check_positive("linalg.reallocation_factor", self.reallocation_factor)
+        if not self.max_num_reallocations >= 1:
+            raise ValueError(
+                f"linalg.max_num_reallocations must be at least 1, got {self.max_num_reallocations!r}"
+            )
 
 
 @dataclass
@@ -71,9 +86,11 @@ class LineSearchOptions:
 
 @dataclass
 class IPOptions:
-    """Options for :func:`parapint_tpu_torch.algorithms.ip_solve_fused`.
+    """Options for :func:`parapint_tpu_torch.algorithms.ip_solve` and
+    :func:`parapint_tpu_torch.algorithms.ip_solve_fused`.
 
     Mirrors the reference defaults exactly (interior_point.py:159-171).
+    ``report_timing`` and ``unified_step`` are read by ``ip_solve`` only.
     """
 
     max_iter: int = 1000
@@ -92,10 +109,12 @@ class IPOptions:
     #   Typically converges in fewer iterations; falls back to monotone
     #   when the problem has no finite bounds.
     barrier_strategy: str = "monotone"
+    report_timing: bool = False
     use_inertia_correction: bool = True
     inertia_correction: InertiaCorrectionOptions = field(default_factory=InertiaCorrectionOptions)
     linalg: LinalgOptions = field(default_factory=LinalgOptions)
     line_search: LineSearchOptions = field(default_factory=LineSearchOptions)
+    unified_step: bool = False
     error_scaling: float = 100.0
     bounds_relaxation_factor: float = 1e-8
 
@@ -113,4 +132,5 @@ class IPOptions:
         _check_positive("error_scaling", self.error_scaling)
         _check_nonnegative("bounds_relaxation_factor", self.bounds_relaxation_factor)
         self.inertia_correction.validate()
+        self.linalg.validate()
         self.line_search.validate()

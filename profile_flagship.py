@@ -1,13 +1,16 @@
-"""Where the time of the port's flagship solve goes, on one CUDA card.
+"""Where the time of the port's flagship solves goes, on one CUDA card.
 
-    python3 profile_flagship.py [dense] [banded]
+    python3 profile_flagship.py [dense] [banded] [qp]
 
-Builds the flagship of ``chip_smoke.py`` (Burgers 50/256/64, float32 KKT,
-cyclic-reduction coupling solve, tol 1e-8) on each path named (both by
-default): "dense" — dense blocks, ``SchurComplementSolver`` in W form (the
-JAX package's ``burgers_64blocks_cr``); "banded" — band stores,
-``BandedSchurComplementSolver`` with 128-wide tiles.  For each it prints,
-all from this one run:
+Builds the configurations of ``chip_smoke.py`` named (all three by
+default): "dense" — the Burgers flagship (50/256/64, float32 KKT,
+cyclic-reduction coupling solve, tol 1e-8) on dense blocks,
+``SchurComplementSolver`` in W form (the JAX package's
+``burgers_64blocks_cr``); "banded" — the same on band stores,
+``BandedSchurComplementSolver`` with 128-wide tiles; "qp" — the two-stage
+stochastic QP (32 scenarios, nk 1024, float32 KKT, tol 1e-8) through the
+hybrid ``SchurComplementSolver`` (float64 pivot sweep, float32 W).  For each
+it prints, all from this one run:
 
 1. the card's name and power limit;
 2. the wall time of five warm solves (host clock, synchronised);
@@ -30,7 +33,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import FLAGSHIP, TILE_SIZE, TOL, _dense_solver
+from chip_smoke import FLAGSHIP, QP, TILE_SIZE, TOL, _dense_solver
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
@@ -66,14 +69,21 @@ def profile_path(path):
     from parapint_tpu_torch.examples import burgers
 
     print(f"===== {path} path")
-    spec = burgers.build_spec(**FLAGSHIP)
-    iface = ptt.DynamicSchurComplementInteriorPointInterface(
-        spec, kkt_dtype=torch.float32, block_form=path
-    )
-    if path == "dense":
-        solver = _dense_solver("cr")
+    if path == "qp":
+        from parapint_tpu_torch.examples import stochastic
+
+        iface = ptt.StochasticSchurComplementInteriorPointInterface(
+            stochastic.qp_spec(**QP), kkt_dtype=torch.float32
+        )
+        solver = ptt.SchurComplementSolver(
+            block_size=128, explicit_inverse=True, factor_dtype=torch.float64,
+            apply_dtype=torch.float32,
+        )
     else:
-        solver = ptt.BandedSchurComplementSolver(
+        iface = ptt.DynamicSchurComplementInteriorPointInterface(
+            burgers.build_spec(**FLAGSHIP), kkt_dtype=torch.float32, block_form=path
+        )
+        solver = _dense_solver("cr") if path == "dense" else ptt.BandedSchurComplementSolver(
             tile_size=TILE_SIZE, schur_complement_solver=ptt.BlockTridiagSolver(ns=iface.ns)
         )
     opts = ptt.IPOptions()
@@ -141,7 +151,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0])
-    for path in sys.argv[1:] or ("dense", "banded"):
+    for path in sys.argv[1:] or ("dense", "banded", "qp"):
         profile_path(path)
 
 

@@ -27,6 +27,10 @@ def test_package_has_sources():
     assert {
         "__init__.py", "ops/ldl_panel.py", "ops/winv_apply.py", "ops/cuda_build.py",
         "linalg/dense.py", "linalg/schur.py", "algorithms/fused.py",
+        "algorithms/interior_point.py", "interfaces/single.py", "interfaces/stochastic.py",
+        "models/model.py", "models/ad.py", "utils/timer.py", "utils/checkpoint.py",
+        "utils/device.py", "examples/stochastic.py", "examples/dynamics.py",
+        "examples/interior_point.py",
     } <= names
     assert (PKG / "csrc" / "ldl_panel_winv.cu").exists()
     assert (PKG / "csrc" / "winv_apply.cu").exists()
@@ -43,7 +47,11 @@ def test_importing_the_port_loads_no_jax():
         "import sys, parapint_tpu_torch, parapint_tpu_torch.convert, "
         "parapint_tpu_torch.examples.burgers, parapint_tpu_torch.ops.ldl_panel, "
         "parapint_tpu_torch.ops.winv_apply, parapint_tpu_torch.ops.cuda_build, "
-        "parapint_tpu_torch.linalg.dense, parapint_tpu_torch.linalg.schur; "
+        "parapint_tpu_torch.linalg.dense, parapint_tpu_torch.linalg.schur, "
+        "parapint_tpu_torch.interfaces.single, parapint_tpu_torch.interfaces.stochastic, "
+        "parapint_tpu_torch.models, parapint_tpu_torch.utils.checkpoint, "
+        "parapint_tpu_torch.examples.stochastic, parapint_tpu_torch.examples.dynamics, "
+        "parapint_tpu_torch.examples.interior_point; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'parapint_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

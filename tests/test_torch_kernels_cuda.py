@@ -1,6 +1,7 @@
-"""The no-W panel entries (K2 ``ldl_panels_slab``, K5 ``ldl_panels``) and the
-W-form block apply (K6 ``winv_apply_fused``) vs their plain PyTorch versions
-on the card.
+"""The no-W panel entries (K2 ``ldl_panels_slab``, K5 ``ldl_panels``), the
+column-by-column batched entries (K3 ``ldl_panels_batched_winv``, K4
+``ldl_panels_batched``) and the W-form block apply (K6 ``winv_apply_fused``)
+vs their plain PyTorch versions on the card.
 
 Needs an NVIDIA GPU with nvcc (the kernels are built from
 ``parapint_tpu_torch/csrc`` at first use); skips elsewhere.  On the card:
@@ -8,7 +9,7 @@ Needs an NVIDIA GPU with nvcc (the kernels are built from
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 Tolerances: the panel kernel rounds every update exactly as its plain
-version does, so K2 and K5 agree bit for bit.  K6 sums in another order:
+version does, so K2, K3, K4 and K5 agree bit for bit.  K6 sums in another order:
 each entry within 2 sqrt(n) eps_f32 times the same computation on absolute
 values (rounding errors of the sums grow as a random walk; an f32 W read as
 bf16 misses this by more than 20x).
@@ -21,6 +22,10 @@ import torch
 from parapint_tpu_torch.ops import ldl
 from parapint_tpu_torch.ops.ldl_panel import (
     ldl_panels,
+    ldl_panels_batched,
+    ldl_panels_batched_plain,
+    ldl_panels_batched_winv,
+    ldl_panels_batched_winv_plain,
     ldl_panels_plain,
     ldl_panels_slab,
     ldl_panels_slab_plain,
@@ -78,11 +83,35 @@ def test_winv_apply_matches_plain_version(cuda, B, n, nk, wdtype):
     assert bool(((x - ref).abs() <= 2 * np.sqrt(n) * EPS * absref).all())
 
 
-def test_odd_float32_batched_panels_raise_on_the_card(cuda):
-    """Widths the JAX package sends to its column-by-column kernels (K3/K4)
-    are not ported: a CUDA float32 panel of such a width raises."""
-    A = torch.eye(12, device=cuda).expand(2, 12, 12).contiguous()
-    with pytest.raises(NotImplementedError, match="B5"):
-        ldl._panel_factor_batch(A)
-    with pytest.raises(NotImplementedError, match="B6"):
-        ldl._panel_factor_batch_winv(A)
+@pytest.mark.parametrize("shape", [(32, 50, 50), (64, 100, 100), (16, 127, 127), (3, 1, 1),
+                                   (5, 13, 13), (64, 128, 128)])
+@pytest.mark.parametrize("case", ["plain", "garbage_upper", "zero_pivot"])
+def test_batched_entries_match_plain_version(cuda, shape, case):
+    """K3 (ldl_panels_batched_winv) and K4 (ldl_panels_batched) at widths
+    that are not a multiple of 8 (and one that is): bitwise equal to their
+    plain versions on the lower triangle of LD and on W."""
+    kw = {case: True} if case != "plain" else {}
+    A = torch.as_tensor(random_panels(*shape[:2], seed=shape[1], **kw), device=cuda)
+    before = (ldl_panels_batched.launches, ldl_panels_batched_winv.launches)
+    LD4 = ldl_panels_batched(A)
+    LD3, W3 = ldl_panels_batched_winv(A)
+    torch.cuda.synchronize()
+    assert (ldl_panels_batched.launches, ldl_panels_batched_winv.launches) == (
+        before[0] + 1, before[1] + 1)
+    LDp, Wp = ldl_panels_batched_winv_plain(A)
+    assert torch.equal(torch.tril(LD4), torch.tril(LDp))
+    assert torch.equal(torch.tril(LD3), torch.tril(LDp)) and torch.equal(W3, Wp)
+    assert torch.equal(ldl_panels_batched_plain(A), LDp)
+
+
+def test_odd_float32_batched_panels_launch_the_column_kernels(cuda, monkeypatch):
+    """The dispatch of ops/ldl: an f32 CUDA panel of a width that is not a
+    multiple of 8, or any width under PT_PANEL_ALGO=column, launches K3/K4."""
+    for algo, b in (("slab", 12), ("column", 16)):
+        monkeypatch.setenv("PT_PANEL_ALGO", algo)
+        A = torch.as_tensor(random_panels(2, b, seed=b), device=cuda)
+        before = (ldl_panels_batched.launches, ldl_panels_batched_winv.launches)
+        ldl.ldl_factor_batched(A, block_size=b)
+        ldl.ldl_factor_winv_batched(A, block_size=b)
+        assert (ldl_panels_batched.launches, ldl_panels_batched_winv.launches) == (
+            before[0] + 1, before[1] + 1)

@@ -205,3 +205,32 @@ def test_winv_family_matches_reference(dtype):
     Kinv = tldl.ldl_inverse(LD, dd).numpy()
     Kinv_r = np.asarray(jldl.ldl_inverse(LD_r, d_r))
     assert np.abs(Kinv - Kinv_r).max() <= 10 * tol * np.abs(Kinv_r).max()
+
+
+@pytest.mark.parametrize("algo", ["slab", "column"])
+@pytest.mark.parametrize("n", [130, 49])
+def test_factor_winv_batched_f32_width_50(monkeypatch, algo, n):
+    """block_size=50: 50-wide panels (not a multiple of 8) go to the
+    column-by-column entries (K3's plain version on the CPU), and so does
+    every panel under PT_PANEL_ALGO=column; float32 vs the JAX package at
+    2e-5 relative (module docstring), inertia exact."""
+    monkeypatch.setenv("PT_PANEL_ALGO", algo)
+    rng = np.random.default_rng(n + 50)
+    A = np.stack([kkt_like(n - 5, 5, rng, c_reg=1e-3) for _ in range(3)])
+    s = np.stack([np.asarray(jldl.ruiz_scale(jnp.asarray(a))) for a in A])
+    A = (A * s[:, :, None] * s[:, None, :]).astype(np.float32)
+    LD_r, d_r, W_r = jldl.ldl_factor_winv_batched(jnp.asarray(A), block_size=50)
+    LD, d, W = tldl.ldl_factor_winv_batched(torch.as_tensor(A), block_size=50)
+    assert LD.shape == LD_r.shape and W.shape == W_r.shape
+    scale = np.abs(np.asarray(LD_r)).max()
+    assert np.abs(np.tril(LD.numpy()) - np.tril(np.asarray(LD_r))).max() < 2e-5 * scale
+    assert np.abs(W.numpy() - np.asarray(W_r)).max() < 2e-5 * np.abs(np.asarray(W_r)).max()
+    LD2, d2 = tldl.ldl_factor_batched(torch.as_tensor(A), block_size=50)
+    LD2_r, _ = jldl.ldl_factor_batched(jnp.asarray(A), block_size=50)
+    assert np.abs(np.tril(LD2.numpy()) - np.tril(np.asarray(LD2_r))).max() < 2e-5 * scale
+    pos, neg, zero = tldl.ldl_inertia(d, n=n)
+    pr, nr, zr = jax.vmap(lambda x: jldl.ldl_inertia(x, n=n))(d_r)
+    assert pos.tolist() == np.asarray(pr).tolist()
+    assert neg.tolist() == np.asarray(nr).tolist() == [5, 5, 5]
+    assert zero.tolist() == np.asarray(zr).tolist() == [0, 0, 0]
+    assert [v.tolist() for v in tldl.ldl_inertia(d2, n=n)] == [pos.tolist(), neg.tolist(), zero.tolist()]

@@ -1,12 +1,16 @@
 """PyTorch panel factorizations (parapint_tpu_torch/ops/ldl_panel.py: the
-entries ldl_panels_slab_winv, ldl_panels_slab and ldl_panels) vs the JAX
-package's Pallas kernels in interpret mode and its XLA column loop.
+entries ldl_panels_slab_winv, ldl_panels_slab, ldl_panels,
+ldl_panels_batched_winv and ldl_panels_batched) vs the JAX package's Pallas
+kernels in interpret mode and its XLA column loop.
 
 On the CPU each wrapper takes its plain version, so these tests hold the
 plain versions — the kernel's oracles on the card — against the reference.
 Inputs are float32 from a numpy seed.  Tolerance: 3e-5 x max|reference|
 for the packed factor (the reference's own slab-vs-unblocked bound in
 tests/test_pallas_ldl.py), 2e-3 for W L - I (same source); inertia exact.
+The column-by-column batched entries are held to the JAX package's own
+bounds for its batched kernels (tests/test_pallas_ldl.py:52-73): 2e-5
+relative and absolute on the packed factor, 2e-4 on W.
 The Pallas kernels leave garbage in the strict upper triangle; the port
 writes 0 there, so factors are compared on the lower triangle.
 """
@@ -19,11 +23,18 @@ import torch
 
 from parapint_tpu.ops.ldl import _ldl_unblocked
 from parapint_tpu.ops.pallas_ldl import ldl_panels as jax_panels
+from parapint_tpu.ops.pallas_ldl import ldl_panels_batched as jax_batched
+from parapint_tpu.ops.pallas_ldl import ldl_panels_batched_winv as jax_batched_winv
 from parapint_tpu.ops.pallas_ldl import ldl_panels_slab as jax_slab
 from parapint_tpu.ops.pallas_ldl import ldl_panels_slab_winv as jax_slab_winv
 from parapint_tpu_torch.ops import cuda_build, ldl_panel
+from parapint_tpu_torch.ops import ldl as tldl
 from parapint_tpu_torch.ops.ldl_panel import (
     ldl_panels,
+    ldl_panels_batched,
+    ldl_panels_batched_plain,
+    ldl_panels_batched_winv,
+    ldl_panels_batched_winv_plain,
     ldl_panels_plain,
     ldl_panels_slab,
     ldl_panels_slab_plain,
@@ -153,3 +164,110 @@ def test_kernel_source_and_build_flags():
     assert 'extern "C"' in src and "ldl_panel_winv_f32" in src and "ldl_panel_f32" in src
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert cuda_build.BUILD_DIR.name == "_build"
+
+
+# -- K3 / K4: the column-by-column batched entries (any width) ----------------
+
+
+@pytest.mark.parametrize("b", [13, 16])
+@pytest.mark.parametrize("case", ["plain", "garbage_upper", "zero_pivot"])
+def test_batched_plain_matches_pallas_interpret(b, case):
+    """K3 (ldl_panels_batched_winv) and K4 (ldl_panels_batched) plain
+    versions vs the JAX batched kernels in interpret mode, chunk 2."""
+    A = _panels(5, b, seed=b + 2, **({case: True} if case != "plain" else {}))
+    LD, W = ldl_panels_batched_winv_plain(torch.as_tensor(A))
+    LD4 = ldl_panels_batched_plain(torch.as_tensor(A))
+    ref, W_ref = jax_batched_winv(jnp.asarray(A), chunk=2, interpret=True)
+    ref4 = jax_batched(jnp.asarray(A), chunk=2, interpret=True)
+    ref, W_ref, ref4 = np.tril(np.asarray(ref)), np.asarray(W_ref), np.tril(np.asarray(ref4))
+    np.testing.assert_allclose(np.tril(LD.numpy()), ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np.tril(LD4.numpy()), ref4, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(W.numpy(), W_ref, rtol=2e-4, atol=2e-4)
+    assert torch.equal(LD, LD4)  # one sweep serves both entries
+    assert np.all(np.triu(LD.numpy(), 1) == 0.0)
+    for i in range(5):
+        assert _signs(np.diag(LD[i].numpy())) == _signs(np.diag(ref[i]))
+    if case == "zero_pivot":
+        assert _signs(np.diagonal(LD.numpy(), axis1=1, axis2=2))[2] == 5
+
+
+def test_batched_plain_follows_the_pivot_column_on_asymmetric_input():
+    """A perturbed (not exactly symmetric) panel: the port and the JAX
+    batched kernel both follow the lower triangle (the case of
+    tests/test_pallas_ldl.py:37-56)."""
+    rng = np.random.default_rng(7)
+    B, b = 4, 32
+    A = rng.standard_normal((B, b, b))
+    A = A + np.swapaxes(A, 1, 2) + 4 * b * np.eye(b)
+    A = (A + 1e-7 * rng.standard_normal((B, b, b))).astype(np.float32)
+    LD = ldl_panels_batched_plain(torch.as_tensor(A)).numpy()
+    ref = np.asarray(jax_batched(jnp.asarray(A), chunk=2, interpret=True))
+    np.testing.assert_allclose(np.tril(LD), np.tril(ref), rtol=2e-5, atol=2e-5)
+    LDw, _ = ldl_panels_batched_winv_plain(torch.as_tensor(A))
+    assert np.array_equal(LDw.numpy(), LD)
+
+
+def test_batched_wrappers_take_plain_versions_on_cpu():
+    counts = (ldl_panels_batched.launches, ldl_panels_batched_winv.launches)
+    for b in (1, 13, 16, 127):
+        A = torch.as_tensor(_panels(2, b, seed=b))
+        assert torch.equal(ldl_panels_batched(A), ldl_panels_batched_plain(A))
+        LD, W = ldl_panels_batched_winv(A)
+        LDp, Wp = ldl_panels_batched_winv_plain(A)
+        assert torch.equal(LD, LDp) and torch.equal(W, Wp)
+    assert (ldl_panels_batched.launches, ldl_panels_batched_winv.launches) == counts
+    for entry in (ldl_panels_batched, ldl_panels_batched_winv):
+        with pytest.raises(ValueError):
+            entry(torch.zeros(2, 129, 129))
+        with pytest.raises(TypeError):
+            entry(torch.zeros(2, 13, 13, dtype=torch.float64))
+
+
+def _spy(monkeypatch, names):
+    """Replace the named panel entries in ops/ldl with recorders that call
+    through: on the CPU the counters do not move, so the routing is read
+    from the calls."""
+    calls = []
+    for name in names:
+        fn = getattr(tldl, name)
+
+        def spy(A, _fn=fn, _name=name):
+            calls.append((_name, A.shape[-1]))
+            return _fn(A)
+
+        monkeypatch.setattr(tldl, name, spy)
+    return calls
+
+
+ENTRY_NAMES = ("ldl_panels_slab", "ldl_panels_batched", "ldl_panels_slab_winv", "ldl_panels_batched_winv")
+
+
+@pytest.mark.parametrize(
+    "algo, b, expect",
+    [
+        (None, 16, ("ldl_panels_slab", "ldl_panels_slab_winv")),
+        ("slab", 16, ("ldl_panels_slab", "ldl_panels_slab_winv")),
+        ("slab2", 16, ("ldl_panels_slab", "ldl_panels_slab_winv")),
+        ("column", 16, ("ldl_panels_batched", "ldl_panels_batched_winv")),
+        (None, 13, ("ldl_panels_batched", "ldl_panels_batched_winv")),
+        ("column", 13, ("ldl_panels_batched", "ldl_panels_batched_winv")),
+    ],
+)
+def test_panel_algo_routes_batched_panels(monkeypatch, algo, b, expect):
+    """PT_PANEL_ALGO, read once per factorization, picks the slab entries (K1/K2)
+    for widths that are a multiple of 8 and the batched ones (K3/K4) for
+    "column" and every other width, as the JAX package's _use_slab_kernel."""
+    if algo is None:
+        monkeypatch.delenv("PT_PANEL_ALGO", raising=False)
+    else:
+        monkeypatch.setenv("PT_PANEL_ALGO", algo)
+    calls = _spy(monkeypatch, ENTRY_NAMES)
+    A = torch.as_tensor(_panels(3, b, seed=b))
+    tldl.ldl_factor_batched(A, block_size=b)
+    tldl.ldl_factor_winv_batched(A, block_size=b)
+    assert calls == [(expect[0], b), (expect[1], b)]
+    calls.clear()
+    slab_algo = tldl._slab_algo()
+    tldl._panel_factor_batch(A.double(), slab_algo)  # f64 keeps the column sweep
+    tldl._panel_factor_batch_winv(A.double(), slab_algo)
+    assert calls == []
