@@ -12,13 +12,21 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 1. device          — require CUDA; print the card's name and power limit,
                      the torch/CUDA versions and ``nvcc --version``.
 2. build           — compile ``parapint_tpu_torch/csrc/*.cu`` (one nvcc per
-                     source, started together) into ``parapint_tpu_torch/_build``.
+                     source, the three started together) into
+                     ``parapint_tpu_torch/_build``.
 3. kernels         — every kernel entry (K1 ``ldl_panels_slab_winv``, K2
                      ``ldl_panels_slab``, K3 ``ldl_panels_batched_winv``, K4
                      ``ldl_panels_batched``, K5 ``ldl_panels``, K6
                      ``winv_apply_fused``) vs its plain version on the card at
                      the paths' shapes plus edge cases; time kernel, plain
                      version and (K6) the two-matmul form.
+3b. kernel lab     — K7 ``read_reduce`` (the read-only streaming probe) bit
+                     for bit equal to its plain version at (64,1024,1024),
+                     (3,8,8) and (5,56,56) for 16, 64 and 256 rows per CTA;
+                     then, every count zeroed, the kernel lab's ``bw``,
+                     ``solve``, ``mxu`` and ``dispatch`` in-process at their
+                     default shapes: K7 launches > 0, and the matmul
+                     precision policy restored afterwards.
 4. dense flagship  — dense block form, float32 KKT, ``SchurComplementSolver``
                      in W form with cyclic-reduction coupling (the JAX
                      package's ``burgers_64blocks_cr``), tol 1e-8, through
@@ -57,9 +65,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 12. banded flagship — the banded block form, ``BandedSchurComplementSolver``
                      (the bench flagship): optimal, K1 launches == 22 x numerics.
 
-Every measurement line carries the card's name and power limit.  The line
-before the last lists each kernel with launches, error, times and bound; the
-last line of standard output is the JSON result.
+Every measurement line carries the card's name and power limit; kernel
+times are medians of CUDA-event windows (``tools/kernel_lab.py::timed_loop``).
+The lines before the last give each bytes-bound kernel's time against K7's
+measured read rate and list each kernel with launches, error, times and
+bound; the last line of standard output is the JSON result.
 """
 
 import dataclasses
@@ -71,6 +81,8 @@ import time
 
 import numpy as np
 import torch
+
+from parapint_tpu_torch.tools.kernel_lab import PEAK_BYTES, bound, card_line, timed_loop
 
 # JAX package's objective for the flagship, banded path on the CPU:
 #   JAX_PLATFORMS=cpu python - <<'EOF'
@@ -162,22 +174,11 @@ K6_TOL = 2.0
 # solutions may differ by that residual times the system's conditioning.
 LD_SOLUTION_RTOL = 1e-3
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_F32_FLOPS = 67e12
-
 SMI = ""
 
 
 def say(*parts):
     print(*parts, f"[{SMI}]")
-
-
-def bound(nbytes, flops):
-    """(least ms on the card, what bounds it)."""
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def panel_bound(B, b, with_w):
@@ -193,10 +194,7 @@ def winv_bound(B, n, nk, itemsize):
 
 def phase_device():
     global SMI
-    SMI = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    SMI = card_line(torch.device("cuda"))
     print(SMI)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -207,35 +205,15 @@ def phase_device():
 
 
 def phase_build():
-    from parapint_tpu_torch.ops import cuda_build, ldl_panel, winv_apply
+    from parapint_tpu_torch.ops import cuda_build, ldl_panel, read_reduce, winv_apply
 
     t0 = time.perf_counter()
-    paths = cuda_build.build_all([ldl_panel.SOURCE, winv_apply.SOURCE])
-    ldl_panel._load()
-    winv_apply._load()
+    paths = cuda_build.build_all([ldl_panel.SOURCE, winv_apply.SOURCE, read_reduce.SOURCE])
+    for module in (ldl_panel, winv_apply, read_reduce):
+        module._load()
     print(f"build: {sorted(p.name for p in paths.values())} in {time.perf_counter() - t0:.2f} s")
     for name, log in cuda_build.build_logs.items():
         print(f"--- {name}\n{log.strip()}")
-
-
-def _median_ms(fn, calls, trials=7):
-    """Median over trials of the CUDA-event time of ``calls`` back-to-back
-    calls, per call, after as many warm-up calls (the first kernel timed in a
-    process read 12% slow after a single one)."""
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(trials):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / calls)
-    return float(np.median(times))
 
 
 def _inertia(LD):
@@ -359,8 +337,8 @@ def phase_kernels():
     def time_panel(key, shape):
         kern, plain = entries[key]
         A = cuda(random_panels(*shape[:2], seed=100))
-        ms = _median_ms(lambda: kern(A), 20)
-        plain_ms = _median_ms(lambda: plain(A), 2, trials=3)
+        ms = timed_loop(lambda: kern(A), 20)
+        plain_ms = timed_loop(lambda: plain(A), 2, trials=3)
         bd, by = panel_bound(shape[0], shape[1], key in ("K1", "K3"))
         say(f"time {key} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bd:.5f} ms ({by})")
@@ -381,11 +359,11 @@ def phase_kernels():
         Wf = Wt.float()
         v = torch.nn.functional.pad(b * s, (0, n - nk))[:, :, None]
         dsafe = torch.where(d.abs() > 0, d, torch.ones_like(d))[:, :, None]
-        ms = _median_ms(lambda: winv_apply_fused(Wt, d, s, b), 20)
-        plain_ms = _median_ms(lambda: winv_apply_plain(Wt, d, s, b), 5)
+        ms = timed_loop(lambda: winv_apply_fused(Wt, d, s, b), 20)
+        plain_ms = timed_loop(lambda: winv_apply_plain(Wt, d, s, b), 5)
         # the library yardstick: the same function as two torch.matmul calls
         # on an f32 W (the port never calls it)
-        lib_ms = _median_ms(lambda: Wf.transpose(1, 2) @ ((Wf @ v) / dsafe), 20)
+        lib_ms = timed_loop(lambda: Wf.transpose(1, 2) @ ((Wf @ v) / dsafe), 20)
         bd, by = winv_bound(B, n, nk, Wt.element_size())
         say(f"time {key} {(B, n, nk)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library (two calls) {lib_ms:.4f} ms, bound {bd:.5f} ms ({by}), "
@@ -408,19 +386,68 @@ def _panel_entries():
 
 
 def _reset_counts():
+    from parapint_tpu_torch.ops.read_reduce import read_reduce
     from parapint_tpu_torch.ops.winv_apply import winv_apply_fused
 
-    for fn in (*_panel_entries().values(), winv_apply_fused):
+    for fn in (*_panel_entries().values(), winv_apply_fused, read_reduce):
         fn.launches = 0
     winv_apply_fused.launches_bf16 = 0
 
 
 def _counts():
+    from parapint_tpu_torch.ops.read_reduce import read_reduce
     from parapint_tpu_torch.ops.winv_apply import winv_apply_fused
 
     counts = {k: fn.launches for k, fn in _panel_entries().items()}
-    counts.update(K6=winv_apply_fused.launches, K6_bf16=winv_apply_fused.launches_bf16)
+    counts.update(K6=winv_apply_fused.launches, K6_bf16=winv_apply_fused.launches_bf16,
+                  K7=read_reduce.launches)
     return counts
+
+
+def phase_kernel_lab():
+    """K7 against its plain version, then the kernel lab's measurement path
+    (``bw``, ``solve``, ``mxu``, ``dispatch`` at their default shapes) with
+    every count zeroed just before it and read just after.  Returns (K7
+    launches, K7's timing row, K7's best measured read rate in bytes/s)."""
+    from parapint_tpu_torch.ops.read_reduce import ROWS_PER_CTA, read_reduce, read_reduce_plain
+    from parapint_tpu_torch.tools import kernel_lab
+
+    rng = np.random.default_rng(7)
+    for B, n in ((64, 1024), (3, 8), (5, 56)):
+        W = torch.as_tensor(rng.standard_normal((B, n, n), dtype=np.float32), device="cuda")
+        for rows in kernel_lab.BW_ROWS:
+            out_k = read_reduce(W, rows)
+            torch.cuda.synchronize()
+            out_p = read_reduce_plain(W, rows)
+            e = (out_k - out_p).abs().max().item()
+            if not torch.equal(out_k, out_p):
+                raise AssertionError(f"K7 disagrees at {(B, n, n)} rows_per_cta={rows}: max|d| {e}")
+            say(f"K7 {(B, n, n)} rows_per_cta={rows}: max|d| {e:.3e} (tolerance 0: bitwise equal)")
+        if B == 64:
+            plain_ms = timed_loop(lambda: read_reduce_plain(W), 3, trials=3)
+    del W
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    lab = {cmd: getattr(kernel_lab, f"cmd_{cmd}")(kernel_lab.parse_args([cmd]))
+           for cmd in ("bw", "solve", "mxu", "dispatch")}
+    torch.cuda.synchronize()
+    c = _counts()
+    say(f"kernel lab: launches {c}")
+    if not c["K7"] > 0:
+        raise AssertionError("kernel lab: no K7 launch")
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("kernel lab: mxu left the matmul precision changed")
+    bw = lab["bw"]
+    B, n, _ = bw["shape"]
+    bd, by = bound(B * n * n * 4 + B * n * 4, B * n * n)
+    timing = dict(ms=bw["rows"][ROWS_PER_CTA]["ms"], plain_ms=plain_ms, bound_ms=bd, bound_by=by,
+                  library_ms=bw["library_ms"], library="torch.sum(W, dim=1, keepdim=True)",
+                  shape=bw["shape"])
+    say(f"time K7 {bw['shape']} rows_per_cta={ROWS_PER_CTA}: kernel {timing['ms']:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {timing['library_ms']:.4f} ms, bound {bd:.5f} ms ({by})")
+    rate = max(r["gbps"] for r in bw["rows"].values()) * 1e9
+    return c["K7"], timing, rate
 
 
 def _dense_solver(coupling="cr", w_store=None, refine=0):
@@ -792,12 +819,13 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
-    import parapint_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     t_start = time.perf_counter()
     phase_device()
     phase_build()
     err, timing = phase_kernels()
+    k7_launches, timing["K7"], k7_rate = phase_kernel_lab()
+    err["K7"] = 0.0
     iface = _dense_iface()
     dense = phase_dense(iface)
     dense_sc = phase_dense_sc(iface)
@@ -822,7 +850,19 @@ def main():
         ("K5", "ldl_panels", src, "parapint_tpu/ops/pallas_ldl.py:583", dense_sc["K5"]),
         ("K6", "winv_apply_fused", "parapint_tpu_torch/csrc/winv_apply.cu",
          "parapint_tpu/ops/winv_apply.py:138", dense["K6"]),
+        ("K7", "read_reduce", "parapint_tpu_torch/csrc/read_reduce.cu",
+         "tools/kernel_lab.py:276", k7_launches),
     ]
+    # each bytes-bound kernel's time against the bytes it moves at K7's
+    # measured read rate, beside the spec bound (3.35 TB/s)
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K6 bf16", "K6 QP", "K7"):
+        t = timing[key]
+        if t["bound_by"] == "bytes":
+            at_k7 = t["bound_ms"] * PEAK_BYTES / k7_rate
+            say(f"{key} {tuple(t['shape'])}: {t['ms']:.4f} ms; at K7's read rate "
+                f"{k7_rate / 1e9:.1f} GB/s the bytes take {at_k7:.5f} ms "
+                f"({at_k7 / t['ms'] * 100:.1f}% of its time), at 3.35 TB/s {t['bound_ms']:.5f} ms "
+                f"({t['bound_ms'] / t['ms'] * 100:.1f}%)")
     kernels = []
     for key, name, source, replaces, launches in rows:
         t = timing[key]

@@ -26,7 +26,6 @@ Writes nothing; everything goes to standard output.
 """
 
 import collections
-import subprocess
 import sys
 import time
 
@@ -34,6 +33,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import FLAGSHIP, QP, TILE_SIZE, TOL, _dense_solver
+from parapint_tpu_torch.tools.kernel_lab import card_line
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
@@ -147,10 +147,7 @@ def main():
     if not torch.cuda.is_available():
         print("profile_flagship: CUDA is not available", file=sys.stderr)
         sys.exit(1)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0])
+    print(card_line(torch.device("cuda")))
     for path in sys.argv[1:] or ("dense", "banded", "qp"):
         profile_path(path)
 

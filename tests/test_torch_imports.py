@@ -30,10 +30,12 @@ def test_package_has_sources():
         "algorithms/interior_point.py", "interfaces/single.py", "interfaces/stochastic.py",
         "models/model.py", "models/ad.py", "utils/timer.py", "utils/checkpoint.py",
         "utils/device.py", "examples/stochastic.py", "examples/dynamics.py",
-        "examples/interior_point.py",
+        "examples/interior_point.py", "ops/read_reduce.py", "utils/profile.py",
+        "tools/__init__.py", "tools/kernel_lab.py", "tools/profile_numeric.py",
+        "tools/profile_bench.py",
     } <= names
-    assert (PKG / "csrc" / "ldl_panel_winv.cu").exists()
-    assert (PKG / "csrc" / "winv_apply.cu").exists()
+    for source in ("ldl_panel_winv.cu", "winv_apply.cu", "read_reduce.cu"):
+        assert (PKG / "csrc" / source).exists()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(PKG).as_posix())
@@ -51,7 +53,9 @@ def test_importing_the_port_loads_no_jax():
         "parapint_tpu_torch.interfaces.single, parapint_tpu_torch.interfaces.stochastic, "
         "parapint_tpu_torch.models, parapint_tpu_torch.utils.checkpoint, "
         "parapint_tpu_torch.examples.stochastic, parapint_tpu_torch.examples.dynamics, "
-        "parapint_tpu_torch.examples.interior_point; "
+        "parapint_tpu_torch.examples.interior_point, parapint_tpu_torch.ops.read_reduce, "
+        "parapint_tpu_torch.utils.profile, parapint_tpu_torch.tools.kernel_lab, "
+        "parapint_tpu_torch.tools.profile_numeric, parapint_tpu_torch.tools.profile_bench; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'parapint_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

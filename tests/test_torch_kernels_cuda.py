@@ -1,7 +1,8 @@
 """The no-W panel entries (K2 ``ldl_panels_slab``, K5 ``ldl_panels``), the
 column-by-column batched entries (K3 ``ldl_panels_batched_winv``, K4
-``ldl_panels_batched``) and the W-form block apply (K6 ``winv_apply_fused``)
-vs their plain PyTorch versions on the card.
+``ldl_panels_batched``), the W-form block apply (K6 ``winv_apply_fused``)
+and the read-only streaming probe (K7 ``read_reduce``) vs their plain
+PyTorch versions on the card.
 
 Needs an NVIDIA GPU with nvcc (the kernels are built from
 ``parapint_tpu_torch/csrc`` at first use); skips elsewhere.  On the card:
@@ -9,7 +10,8 @@ Needs an NVIDIA GPU with nvcc (the kernels are built from
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 Tolerances: the panel kernel rounds every update exactly as its plain
-version does, so K2, K3, K4 and K5 agree bit for bit.  K6 sums in another order:
+version does, so K2, K3, K4 and K5 agree bit for bit; K7 adds in its plain version's
+order, so it does too.  K6 sums in another order:
 each entry within 2 sqrt(n) eps_f32 times the same computation on absolute
 values (rounding errors of the sums grow as a random walk; an f32 W read as
 bf16 misses this by more than 20x).
@@ -31,6 +33,7 @@ from parapint_tpu_torch.ops.ldl_panel import (
     ldl_panels_slab_plain,
     random_panels,
 )
+from parapint_tpu_torch.ops.read_reduce import read_reduce, read_reduce_plain
 from parapint_tpu_torch.ops.winv_apply import winv_apply_fused, winv_apply_plain
 
 pytestmark = pytest.mark.cuda
@@ -115,3 +118,18 @@ def test_odd_float32_batched_panels_launch_the_column_kernels(cuda, monkeypatch)
         ldl.ldl_factor_winv_batched(A, block_size=b)
         assert (ldl_panels_batched.launches, ldl_panels_batched_winv.launches) == (
             before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("B,n", [(64, 1024), (3, 8), (5, 56)])
+@pytest.mark.parametrize("rows", [16, 64, 256])
+def test_read_reduce_matches_plain_version(cuda, B, n, rows):
+    """K7 at the kernel lab's shape and two edge shapes, for each rows per
+    CTA the lab sweeps: bitwise equal to its plain version."""
+    rng = np.random.default_rng(n)
+    W = torch.as_tensor(rng.standard_normal((B, n, n), dtype=np.float32), device=cuda)
+    before = read_reduce.launches
+    out = read_reduce(W, rows)
+    torch.cuda.synchronize()
+    assert read_reduce.launches == before + 1
+    assert out.shape == (B, 1, n)
+    assert torch.equal(out, read_reduce_plain(W, rows))
