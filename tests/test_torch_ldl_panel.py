@@ -271,3 +271,65 @@ def test_panel_algo_routes_batched_panels(monkeypatch, algo, b, expect):
     tldl._panel_factor_batch(A.double(), slab_algo)  # f64 keeps the column sweep
     tldl._panel_factor_batch_winv(A.double(), slab_algo)
     assert calls == []
+
+
+# -- the kernel's order of operations, mirrored on the CPU --------------------
+
+
+def _slab_order_mirror(A: torch.Tensor, with_w: bool, r: int = 8):
+    """The CUDA kernel's schedule (csrc/ldl_panel_winv.cu) in torch: 8-column
+    slabs [j0, e); per column j of the slab, the multipliers and the raw
+    column go to ``lmul``/``craw`` and only the slab's own columns are
+    updated; packing waits for the end of the slab; the trailing block then
+    takes the slab's r updates in ascending jj, and W takes them first in
+    the slab's rows (ascending row, ascending jj), then in the rows below.
+    Every update is a separate product and subtraction, as ``msub``."""
+    B, b, _ = A.shape
+    a = torch.tril(A).clone()
+    W = torch.eye(b, dtype=A.dtype).expand(B, b, b).clone() if with_w else None
+    for j0 in range(0, b, r):
+        e = min(j0 + r, b)
+        craw = torch.zeros(B, b, e - j0, dtype=A.dtype)
+        lmul = torch.zeros_like(craw)
+        for j in range(j0, e):
+            jj = j - j0
+            piv = a[:, j, j]
+            piv_safe = torch.where(piv.abs() > 0, piv, torch.ones_like(piv))
+            col = a[:, j + 1 :, j].clone()
+            craw[:, j + 1 :, jj] = col
+            lmul[:, j + 1 :, jj] = col / piv_safe[:, None]
+            if j + 1 < e:  # the slab's own columns (j, e), c <= i
+                blk = a[:, j + 1 :, j + 1 : e]
+                prod = lmul[:, j + 1 :, jj, None] * col[:, None, : e - j - 1]
+                keep = torch.ones(blk.shape[1:], dtype=torch.bool).tril()
+                a[:, j + 1 :, j + 1 : e] = torch.where(keep, blk - prod, blk)
+        if e < b:  # trailing block, c <= i, one element at a time in jj order
+            X = a[:, e:, e:]
+            keep = torch.ones(X.shape[1:], dtype=torch.bool).tril()
+            for jj in range(e - j0):
+                X = torch.where(keep, X - lmul[:, e:, jj, None] * craw[:, None, e:, jj], X)
+            a[:, e:, e:] = X
+        for j in range(j0, e):  # deferred packing
+            a[:, j + 1 :, j] = lmul[:, j + 1 :, j - j0]
+        if with_w:
+            for i in range(j0 + 1, e):  # the slab's own rows, in order
+                for j in range(j0, i):
+                    W[:, i, : j + 1] = W[:, i, : j + 1] - lmul[:, i, j - j0, None] * W[:, j, : j + 1]
+            for j in range(j0, e):  # then the rows below, from the final slab rows
+                W[:, e:, : j + 1] = W[:, e:, : j + 1] - lmul[:, e:, j - j0, None] * W[:, None, j, : j + 1]
+    return a, W
+
+
+@pytest.mark.parametrize("b", [1, 7, 8, 13, 56, 64, 100, 128])
+@pytest.mark.parametrize("case", ["plain", "garbage_upper", "zero_pivot"])
+def test_slab_schedule_is_bitwise_the_plain_sweep(b, case):
+    """The kernel's slab schedule rounds every entry as the plain sweep does
+    (same updates, same operands, same order per entry), so it is
+    torch.equal to both plain versions: the CUDA kernel's bit-for-bit
+    contract, shown without the card."""
+    A = torch.as_tensor(_panels(2, b, seed=b + 11, **({case: True} if case != "plain" else {})))
+    LD, W = _slab_order_mirror(A, with_w=True)
+    LDp, Wp = ldl_panels_slab_winv_plain(A)
+    assert torch.equal(LD, LDp) and torch.equal(W, Wp)
+    LD0, _ = _slab_order_mirror(A, with_w=False)
+    assert torch.equal(LD0, ldl_panels_plain(A))
