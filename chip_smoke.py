@@ -18,8 +18,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      ``ldl_panels_slab``, K3 ``ldl_panels_batched_winv``, K4
                      ``ldl_panels_batched``, K5 ``ldl_panels``, K6
                      ``winv_apply_fused``) vs its plain version on the card at
-                     the paths' shapes plus edge cases; time kernel, plain
-                     version and (K6) the two-matmul form.
+                     the paths' shapes plus edge cases, and K3/K4 at every
+                     width 1..128; time kernel, plain version and (K6) the
+                     two-matmul form.
 3b. kernel lab     — K7 ``read_reduce`` (the read-only streaming probe) bit
                      for bit equal to its plain version at (64,1024,1024),
                      (3,8,8) and (5,56,56) for 16, 64 and 256 rows per CTA;
@@ -49,6 +50,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      one ``SchurComplementSolver(block_size=100)`` W-form
                      numeric of the first KKT: K3 at width 100 (10 x per
                      numeric), inertia equal to a CPU copy's.
+8b. fixed order   — ROADMAP C9: the "scatter" topology's three float64 sums
+                     at the flagship's size, each twice on the same inputs:
+                     bitwise equal.
 9. stochastic QP   — 32 scenarios x (n=768, me=192, n_first=64), float32
                      KKT, the hybrid ``SchurComplementSolver`` (float64 pivot
                      sweep, float32 W, adaptive refinement), tol 1e-8: one
@@ -302,6 +306,17 @@ def phase_kernels():
             out_k = kern(A)
             torch.cuda.synchronize()
             err[key] = max(err[key], _check_panel(f"{key} {kw or ''}", shape, out_k, plain(A)))
+    # every width 1..128 through both instantiations: the first and the last
+    # 8-column slab of the kernel at every raggedness, bitwise
+    for b in range(1, 129):
+        A = cuda(random_panels(3, b, seed=b, zero_pivot=b % 3 == 0))
+        LD3, W3 = ldl_panels_batched_winv(A)
+        LD4 = ldl_panels_batched(A)
+        torch.cuda.synchronize()
+        LDp, Wp = ldl_panels_batched_winv_plain(A)
+        if not (torch.equal(LD3, LDp) and torch.equal(W3, Wp) and torch.equal(LD4, LDp)):
+            raise AssertionError(f"width sweep: K3/K4 differ from the plain sweep at (3, {b}, {b})")
+    say("width sweep b = 1..128 at B = 3: K3 (with W) and K4 (no W) bitwise equal to the plain sweep")
 
     # the dense flagship's shape, the stochastic QP's (32 scenarios, nk = n =
     # 1024, no padding) and edge cases
@@ -668,6 +683,53 @@ def phase_column(iface, slab, slab_LD):
     return c, c_ld
 
 
+def phase_fixed_order(iface, device="cuda"):
+    """ROADMAP C9: the "scatter" topology's three float64 sums (the SC
+    assembly ``_scatter_sc``, the border apply ``_border_apply_local`` and
+    the interface's ``_scatter_link_duals_to_coupling``) at the dense
+    flagship's size (N 64, L 98, nc 3087), on its chain row map (every
+    group hit by two blocks, dump rows) and on a seeded random map: each
+    called twice on the same CUDA inputs must repeat bit for bit.  The
+    atomic scatter-add they replaced is run beside them for the record."""
+    from parapint_tpu_torch.linalg.schur import _border_apply_local, _scatter_sc
+
+    rng = np.random.default_rng(9)
+    N, L, nc, nk = iface.N, iface.n_link, iface.ncv, iface.nk
+    t = lambda a: torch.as_tensor(a, device=device)
+    S = t(rng.standard_normal((N, L, L)))
+    border = t(rng.standard_normal((N, L, nk)))
+    v = t(rng.standard_normal((N, nk)))
+    maps = {"chain map": iface.row_idx, "random map": t(rng.integers(0, nc + 1, size=(N, L)))}
+    for name, row_idx in maps.items():
+        r = row_idx.long()
+        atomic = []
+        for _ in range(2):
+            out = torch.zeros((nc + 1, nc + 1), dtype=S.dtype, device=device)
+            out.index_put_((r[:, :, None].expand(N, L, L), r[:, None, :].expand(N, L, L)), S,
+                           accumulate=True)
+            atomic.append(out[:nc, :nc])
+        for label, fn in (("_scatter_sc", lambda: _scatter_sc(S, row_idx, nc)),
+                          ("_border_apply_local", lambda: _border_apply_local(border, row_idx, v, nc))):
+            a, b = fn(), fn()
+            say(f"C9 {label} {name} {tuple(a.shape)}: repeats bit for bit {torch.equal(a, b)}"
+                + (f"; the atomic scatter-add repeats: {torch.equal(*atomic)}, "
+                   f"max|fixed - atomic| {(a - atomic[0]).abs().max().item():.3e}"
+                   if label == "_scatter_sc" else ""))
+            if not torch.equal(a, b):
+                raise AssertionError(f"C9: {label} on the {name} did not repeat")
+    duals = {"link": t(rng.standard_normal((N, L)))}
+    before = iface.sc_assembly
+    iface.sc_assembly = "scatter"
+    try:
+        a = iface._scatter_link_duals_to_coupling(duals)
+        b = iface._scatter_link_duals_to_coupling(duals)
+    finally:
+        iface.sc_assembly = before
+    say(f"C9 _scatter_link_duals_to_coupling {tuple(a.shape)}: repeats bit for bit {torch.equal(a, b)}")
+    if not torch.equal(a, b):
+        raise AssertionError("C9: _scatter_link_duals_to_coupling did not repeat")
+
+
 def phase_banded():
     import parapint_tpu_torch as ptt
     from parapint_tpu_torch.examples import burgers
@@ -832,6 +894,7 @@ def main():
     phase_bf16(iface)
     ld, ld_LD = phase_ld(iface)
     column, column_ld = phase_column(iface, dense, ld_LD)
+    phase_fixed_order(iface)
     del iface, ld_LD
     torch.cuda.empty_cache()
     phase_stochastic_qp()

@@ -15,9 +15,9 @@
 // The Pallas kernels differ in how they block the sweep (8-column slabs
 // for K1/K2, one column per step for K3/K4/K5) and in how many panels one
 // grid step holds (a batch chunk, for the TPU's single core); their function
-// on the lower triangle is the same, and this kernel computes it column by
-// column for every entry.  Nothing here needs b % 8 == 0: indexing is by b,
-// and rows are padded to an odd stride whatever b is.
+// on the lower triangle is the same, and this kernel computes it for every
+// entry with the slab blocking of _make_slab_kernel.  Nothing here needs
+// b % 8 == 0: the last slab is b % 8 wide when b is not a multiple of 8.
 // Contract, identical to the Pallas kernels' on the lower triangle:
 //   in   A  (B, b, b) f32, row-major, symmetric up to roundoff; only the
 //            LOWER triangle is read (the factor follows the true pivot
@@ -28,39 +28,56 @@
 //   A zero pivot divides by 1 and is left for the inertia count.
 //
 // What bounds it on an H100: the factorization is a chain of b dependent
-// rank-1 steps, each small (at most b^2 multiply-adds per panel).  It is
-// latency-bound — neither bytes (2 or 3 x b^2 x 4 bytes per panel moved
-// once) nor FLOPs (b^3/3 per panel, b^3 with W) come close to the card's
-// limits; the cost is the per-step barrier plus the shared-memory round trip
-// of each step.  At B = 1 (the dense LDL^T's one panel per step) one CTA
-// runs on one SM and the call is pure latency.
+// rank-1 steps, each small (at most b^2 multiply-adds per panel).  Neither
+// bytes (2 or 3 x b^2 x 4 bytes per panel moved once) nor FLOPs (b^3/3 per
+// panel, b^3/2 with W) come close to the card's limits; the cost is first
+// the serial chain of b steps, each ending in a barrier, then the
+// shared-memory traffic of the updates.  At B = 1 (the dense LDL^T's one
+// panel per step) one CTA runs on one SM and the call is pure latency.
 //
-// What the design does about it: one CTA per panel, with the panel (and W)
-// resident in shared memory for the whole sweep, so the chain never touches
-// device memory between steps and each step costs two __syncthreads.  Step
-// j: (1) the b-j-1 pivot-column entries and their multipliers l = col / d_j
-// go to two small shared vectors; (2) one pass over rows i > j applies, per
-// element (i, c), the trailing rank-1 update A[i][c] -= l_i * col_c for
-// j < c <= i, packs A[i][j] = l_i, and (kWithW) accumulates
-// W[i][c] -= l_i * W[j][c] for c <= j (row j of W is final at step j).  The
-// no-W pass walks only columns c >= j.  Each update rounds the product
-// before subtracting, as the plain version does, so kernel and plain version
-// agree bit for bit and are held to that.  A fused multiply-add would be
-// slightly more accurate per step; changing the rounding is allowed, but
-// then the exact-equality checks change with it and the bf16-W dense
-// flagship, whose outcome depends on the factors' last bit (2 of 16
-// one-ulp perturbations of these outputs stop it with status error;
-// bf16_rounding.py), must be re-run.
-// Rows of A are padded to an odd stride so the column reads of phase (1) hit
-// distinct banks.  This is the simple, right first version: the
-// slab/recursive blocking, wgmma trailing updates and several small panels
-// per CTA are later work.
+// What the design does about it: one CTA per panel, the panel (and W)
+// resident in shared memory for the whole sweep, and the b columns taken
+// in slabs [j0, e) of kSlab = 8 columns.  Each slab has three phases.
+//  1. The in-slab chain, one barrier per column.  Thread i owns row i.  At
+//     step j, row i > j computes l_i = a[i][j] / d_j, keeps the raw a[i][j]
+//     and l_i in the slab buffers craw/lmul, and updates only its own
+//     entries of the slab's later columns, a[i][c] for j < c < e, c <= i.
+//     Packing a[i][j] = l_i waits for the end of the slab, so column j is
+//     read-only during step j and the step needs no second barrier.
+//  2. The trailing update, one pass per slab: each entry (i, c), e <= c <=
+//     i, is loaded once into a register, takes the slab's 8 updates
+//     x -= lmul[i][jj] * craw[c][jj] in ascending jj and is stored once (a
+//     warp per row, a lane per column).  The slab's columns are packed in
+//     the same pass.  With W, the slab's own rows of W take the slab's
+//     updates in the same pass too (a thread per column walks the rows in
+//     order); after one barrier, the rows below take them from the now
+//     final slab rows.
+//  3. One barrier before the next slab.
+// So a panel costs about b + ceil(b/8) barriers (b + 2 ceil(b/8) with W),
+// and each trailing entry goes through shared memory once per 8 columns.
+// Every entry still receives exactly the rank-1 updates of the plain sweep,
+// in ascending j, with the same operands; each rounds the product before
+// subtracting (msub: no fused multiply-add), as the plain version does.
+// Only the grouping across entries differs from the plain sweep, never the
+// sequence within an entry, so kernel and plain version agree bit for bit
+// and are held to that.  A fused multiply-add would be slightly more
+// accurate per step; changing the rounding is allowed, but then the
+// exact-equality checks change with it and the bf16-W dense flagship, whose
+// outcome depends on the factors' last bit (2 of 16 one-ulp perturbations
+// of these outputs stop it with status error; bf16_rounding.py), must be
+// re-run.
+// Rows of A are padded to an odd stride, so the row-per-thread accesses of
+// phase 1 hit distinct banks; craw and lmul are stored column by column
+// (index jj * b + i), so phase 1 writes and the lanes' reads of craw in
+// phase 2 are consecutive, and the reads of lmul are broadcasts.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlab = 8;
 
 __host__ __device__ inline int row_stride(int b) { return b | 1; }
 
@@ -78,77 +95,105 @@ ldl_panel_kernel(const float* __restrict__ A, float* __restrict__ LD,
   const int lda = row_stride(b);
   float* a = smem;                          // b x lda, working matrix
   float* w = a + b * lda;                   // b x b, W accumulation (kWithW)
-  float* ccol = kWithW ? w + b * b : w;     // raw pivot column (rows > j)
-  float* lcol = ccol + b;                   // multipliers l (rows > j)
+  float* craw = kWithW ? w + b * b : w;     // kSlab x b, raw slab columns
+  float* lmul = craw + kSlab * b;           // kSlab x b, their multipliers
 
   const size_t off = static_cast<size_t>(blockIdx.x) * b * b;
   const float* src = A + off;
   const int tid = threadIdx.x;
-  const int nn = b * b;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
-  for (int idx = tid; idx < nn; idx += blockDim.x) {
-    const int i = idx / b;
-    const int c = idx - i * b;
-    a[i * lda + c] = src[idx];
-    if constexpr (kWithW) w[idx] = (i == c) ? 1.0f : 0.0f;
+  for (int i = warp; i < b; i += kWarps) {
+    for (int c = lane; c < b; c += 32) {
+      a[i * lda + c] = src[i * b + c];
+      if constexpr (kWithW) w[i * b + c] = (i == c) ? 1.0f : 0.0f;
+    }
   }
   __syncthreads();
 
-  for (int j = 0; j < b; ++j) {
-    const float piv = a[j * lda + j];
-    const float piv_safe = fabsf(piv) > 0.0f ? piv : 1.0f;
-    for (int i = j + 1 + tid; i < b; i += blockDim.x) {
-      const float cv = a[i * lda + j];
-      ccol[i] = cv;
-      lcol[i] = cv / piv_safe;
+  for (int j0 = 0; j0 < b; j0 += kSlab) {
+    const int e = min(j0 + kSlab, b);  // only the last slab is narrower
+
+    // 1. the in-slab chain: thread i owns row i, one barrier per column
+    for (int j = j0; j < e; ++j) {
+      const int i = tid;
+      if (i > j && i < b) {
+        const float piv = a[j * lda + j];
+        const float piv_safe = fabsf(piv) > 0.0f ? piv : 1.0f;
+        const float cv = a[i * lda + j];
+        const float li = cv / piv_safe;
+        craw[(j - j0) * b + i] = cv;
+        lmul[(j - j0) * b + i] = li;
+        const int last = min(e - 1, i);
+        for (int c = j + 1; c <= last; ++c) {
+          a[i * lda + c] = msub(a[i * lda + c], li, a[c * lda + j]);
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    const int rows = b - j - 1;
+
+    // 2. the trailing block (a full slab: e < b only when e - j0 == kSlab),
+    //    a warp per row, a lane per column, the slab's updates in order
+    for (int i = e + warp; i < b; i += kWarps) {
+      float l[kSlab];
+#pragma unroll
+      for (int jj = 0; jj < kSlab; ++jj) l[jj] = lmul[jj * b + i];
+      for (int c = e + lane; c <= i; c += 32) {
+        float x = a[i * lda + c];
+#pragma unroll
+        for (int jj = 0; jj < kSlab; ++jj) x = msub(x, l[jj], craw[jj * b + c]);
+        a[i * lda + c] = x;
+      }
+    }
+    // pack the slab's columns: a[i][j] = l_i for i > j
+    for (int i = j0 + 1 + tid; i < b; i += kThreads) {
+      const int cols = min(e, i) - j0;
+      for (int jj = 0; jj < cols; ++jj) a[i * lda + j0 + jj] = lmul[jj * b + i];
+    }
     if constexpr (kWithW) {
-      const int work = rows * b;
-      for (int idx = tid; idx < work; idx += blockDim.x) {
-        const int r = idx / b;
-        const int c = idx - r * b;
-        const int i = j + 1 + r;
-        const float li = lcol[i];
-        if (c > j) {
-          if (c <= i) a[i * lda + c] = msub(a[i * lda + c], li, ccol[c]);
-        } else {
-          if (c == j) a[i * lda + j] = li;
-          w[i * b + c] = msub(w[i * b + c], li, w[j * b + c]);
+      // the slab's own rows of W: a thread per column c walks the rows
+      // i in (j0, e) in order, W[i][c] -= l_i,j W[j][c] for c <= j < i
+      for (int c = tid; c < e - 1; c += kThreads) {
+        for (int i = max(j0, c) + 1; i < e; ++i) {
+          float x = w[i * b + c];
+          for (int j = max(j0, c); j < i; ++j) x = msub(x, lmul[(j - j0) * b + i], w[j * b + c]);
+          w[i * b + c] = x;
         }
       }
-    } else {
-      const int width = b - j;  // columns j .. b-1
-      const int work = rows * width;
-      for (int idx = tid; idx < work; idx += blockDim.x) {
-        const int r = idx / width;
-        const int c = j + (idx - r * width);
-        const int i = j + 1 + r;
-        const float li = lcol[i];
-        if (c == j) {
-          a[i * lda + j] = li;
-        } else if (c <= i) {
-          a[i * lda + c] = msub(a[i * lda + c], li, ccol[c]);
+      __syncthreads();
+      // the rows below, from the final slab rows
+      for (int i = e + warp; i < b; i += kWarps) {
+        float l[kSlab];
+#pragma unroll
+        for (int jj = 0; jj < kSlab; ++jj) l[jj] = lmul[jj * b + i];
+        for (int c = lane; c < e; c += 32) {
+          float x = w[i * b + c];
+#pragma unroll
+          for (int jj = 0; jj < kSlab; ++jj) {
+            if (c <= j0 + jj) x = msub(x, l[jj], w[(j0 + jj) * b + c]);
+          }
+          w[i * b + c] = x;
         }
       }
     }
+    // 3. before the next slab overwrites craw/lmul
     __syncthreads();
   }
 
   float* ld_out = LD + off;
-  for (int idx = tid; idx < nn; idx += blockDim.x) {
-    const int i = idx / b;
-    const int c = idx - i * b;
-    ld_out[idx] = (c <= i) ? a[i * lda + c] : 0.0f;
-    if constexpr (kWithW) W[off + idx] = w[idx];
+  for (int i = warp; i < b; i += kWarps) {
+    for (int c = lane; c < b; c += 32) {
+      ld_out[i * b + c] = (c <= i) ? a[i * lda + c] : 0.0f;
+      if constexpr (kWithW) W[off + i * b + c] = w[i * b + c];
+    }
   }
 }
 
 template <bool kWithW>
 size_t smem_bytes(int b) {
   const size_t bb = static_cast<size_t>(b);
-  return sizeof(float) * (bb * row_stride(b) + (kWithW ? bb * bb : 0) + 2 * bb);
+  return sizeof(float) * (bb * row_stride(b) + (kWithW ? bb * bb : 0) + 2 * kSlab * bb);
 }
 
 template <bool kWithW>

@@ -43,6 +43,7 @@ from parapint_tpu_torch.interfaces.blocked import (
 )
 from parapint_tpu_torch.linalg.banded_schur import BandedLocalBlockKKT
 from parapint_tpu_torch.linalg.schur import BlockRhs, LocalBlockKKT
+from parapint_tpu_torch.ops.ordered_scatter import scatter_add_rows
 
 F64 = torch.float64
 
@@ -346,18 +347,17 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
     def _scatter_link_duals_to_coupling(self, duals_eq):
         """The link duals summed onto their coupling rows, (ncv,).  Chain:
         group g collects the forward duals of block g and the backward duals
-        of block g+1; shared: rows 0..n_link-1 sum over the blocks, in a fixed
-        order (``index_add_`` on the card adds in any order, so solves would
-        not repeat bit for bit); scatter adds each dual at its row_idx."""
+        of block g+1; shared: rows 0..n_link-1 sum over the blocks; scatter
+        adds each dual at its row_idx.  Every topology adds in a fixed order
+        (an atomic scatter-add on the card adds in any order, so solves would
+        not repeat bit for bit)."""
         lam = self._link_duals(duals_eq)
         if self._chain_links:
             ns = self.ns
             return (lam[: self.N - 1, ns:] + lam[1:, :ns]).reshape(self.ncv)
         if self.sc_assembly == "shared":
             return torch.nn.functional.pad(lam.sum(0), (0, self.ncv - self.n_link))
-        out = lam.new_zeros(self.ncv + 1)
-        out.index_add_(0, self.row_idx.reshape(-1), lam.reshape(-1))
-        return out[: self.ncv]
+        return scatter_add_rows(self.row_idx, lam, self.ncv)
 
     def _grad_lag_primals(self, state, grad_f, jtlam, jac_eq=None, jac_ineq=None):
         """grad f + J^T y + link rows^T lam; ``jtlam`` None contracts the

@@ -45,6 +45,7 @@ from parapint_tpu_torch.ops.ldl import (
     ldl_winv,
     ruiz_scale,
 )
+from parapint_tpu_torch.ops.ordered_scatter import scatter_add_pairs, scatter_add_rows
 from parapint_tpu_torch.ops.winv_apply import winv_apply_fused, winv_apply_plain
 
 # adaptive refinement: passes run while the float32 residual exceeds
@@ -259,11 +260,9 @@ def _sc_contribution_winv(W, d, s, border, mask):
 
 
 def _scatter_sc(S_loc, row_idx, nc: int):
-    out = torch.zeros((nc + 1, nc + 1), dtype=S_loc.dtype, device=S_loc.device)
-    N, L = row_idx.shape
-    r = row_idx.long()
-    out.index_put_((r[:, :, None].expand(N, L, L), r[:, None, :].expand(N, L, L)), S_loc, accumulate=True)
-    return out[:nc, :nc]
+    """sum_i P_i S_i P_i^T, each entry's contributions added in block order
+    (the dump index nc dropped)."""
+    return scatter_add_pairs(row_idx, S_loc, nc)
 
 
 def _chain_tiles(S_loc, nc: int):
@@ -349,15 +348,12 @@ def _tridiag_sc_capable(sc_solver, kkt) -> bool:
 
 
 def _border_apply_local(border_loc, row_idx, v, nc: int, assembly: str = "scatter"):
-    """sum_i P_i A_i v_i -> (nc,).  The shared topology (every block on rows
-    0..L-1) sums over the blocks in a fixed order; ``index_add_`` on the card
-    adds in any order."""
+    """sum_i P_i A_i v_i -> (nc,), summed over the blocks in a fixed order
+    (the shared topology has every block on rows 0..L-1)."""
     contrib = (border_loc.to(v.dtype) @ v[:, :, None])[..., 0]
     if assembly == "shared":
         return torch.nn.functional.pad(contrib.sum(0), (0, nc - contrib.shape[1]))
-    out = torch.zeros(nc + 1, dtype=v.dtype, device=v.device)
-    out.index_add_(0, row_idx.reshape(-1).long(), contrib.reshape(-1))
-    return out[:nc]
+    return scatter_add_rows(row_idx, contrib, nc)
 
 
 def _border_T_apply_local(border_loc, row_idx, y):

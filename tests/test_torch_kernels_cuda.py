@@ -107,6 +107,21 @@ def test_batched_entries_match_plain_version(cuda, shape, case):
     assert torch.equal(ldl_panels_batched_plain(A), LDp)
 
 
+@pytest.mark.parametrize("b", [1, 7, 9, 63, 65, 120, 127])
+def test_ragged_slabs_match_plain_version(cuda, b):
+    """Widths whose first or last 8-column slab is ragged (b < 8, b % 8 != 0),
+    through both instantiations (K3 with W, K4 and K5 without): bitwise
+    equal to the plain sweep."""
+    A = torch.as_tensor(random_panels(3, b, seed=b, zero_pivot=b > 1), device=cuda)
+    LD3, W3 = ldl_panels_batched_winv(A)
+    LD4 = ldl_panels_batched(A)
+    LD5 = ldl_panels(A[:1].contiguous())
+    torch.cuda.synchronize()
+    LDp, Wp = ldl_panels_batched_winv_plain(A)
+    assert torch.equal(LD3, LDp) and torch.equal(W3, Wp)
+    assert torch.equal(LD4, LDp) and torch.equal(LD5, LDp[:1])
+
+
 def test_odd_float32_batched_panels_launch_the_column_kernels(cuda, monkeypatch):
     """The dispatch of ops/ldl: an f32 CUDA panel of a width that is not a
     multiple of 8, or any width under PT_PANEL_ALGO=column, launches K3/K4."""

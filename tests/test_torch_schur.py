@@ -282,3 +282,43 @@ def test_singular_block_reports_singular():
         solver = ptt.SchurComplementSolver(block_size=8, explicit_inverse=ei)
         fact = solver.numeric(BlockKKT.make(t(diag), t(border), t(q)))
         assert int(solver.status(fact)) == int(ptt.LinearSolverStatus.singular)
+
+
+def _scatter_inputs(N, L, nc, seed):
+    """Seeded float64 local-border data whose rows collide (several blocks
+    and several rows of one block on one coupling row) and hit the dump
+    index nc."""
+    rng = np.random.default_rng(seed)
+    row_idx = rng.integers(0, nc + 1, size=(N, L))
+    row_idx[:, 0] = nc  # a dump row in every block
+    row_idx[:, 1] = row_idx[0, 2]  # one coupling row hit by every block
+    S = rng.standard_normal((N, L, L))
+    border = rng.standard_normal((N, L, 5))
+    v = rng.standard_normal((N, 5))
+    return row_idx, S, border, v
+
+
+@pytest.mark.parametrize("N, L, nc", [(6, 7, 4), (16, 12, 30), (3, 20, 9)])
+def test_scatter_sites_match_reference_in_fixed_order(N, L, nc):
+    """The "scatter" topology's two sums (the SC assembly and the border
+    apply) against the JAX package's .at[].add on the same float64 inputs:
+    the same values added in another order, so 1e-12 relative."""
+    from parapint_tpu.linalg import schur as jschur
+    from parapint_tpu_torch.linalg import schur as tschur
+
+    row_idx, S, border, v = _scatter_inputs(N, L, nc, seed=N + L)
+    t_row = torch.as_tensor(row_idx)
+    sc = tschur._scatter_sc(torch.as_tensor(S), t_row, nc).numpy()
+    sc_ref = np.asarray(jschur._scatter_sc(jnp.asarray(S), jnp.asarray(row_idx), nc))
+    assert np.abs(sc - sc_ref).max() <= 1e-12 * np.abs(sc_ref).max()
+    av = tschur._border_apply_local(torch.as_tensor(border), t_row, torch.as_tensor(v), nc).numpy()
+    av_ref = np.asarray(jschur._border_apply_local(
+        jnp.asarray(border), jnp.asarray(row_idx), jnp.asarray(v), nc))
+    assert np.abs(av - av_ref).max() <= 1e-12 * np.abs(av_ref).max()
+    # the order is block-major: a serial loop over the blocks gives the same bits
+    loop = np.zeros((nc + 1, nc + 1))
+    for b in range(N):
+        for i in range(L):
+            for j in range(L):
+                loop[row_idx[b, i], row_idx[b, j]] += S[b, i, j]
+    assert np.array_equal(sc, loop[:nc, :nc])

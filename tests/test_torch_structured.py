@@ -121,3 +121,19 @@ def test_convergence_from_ad_matches_reference(pair):
     tc = ti.convergence_from_ad(tst, t_ad, torch.tensor(0.1, dtype=torch.float64), 100.0)
     for k in ("primal_inf", "dual_inf", "compl_inf_0"):
         _close(getattr(tc, k), getattr(jc, k), False, k)
+
+
+def test_scatter_link_duals_match_reference(pair, monkeypatch):
+    """The "scatter" topology's sum of the link duals onto the coupling rows
+    (each group is hit by two blocks; the first block's backward and the
+    last block's forward rows go to the dump index) against the JAX
+    package's .at[].add, to 1e-12 relative; in block order, it gives the
+    chain topology's two-term sums bit for bit."""
+    _, (ji, jst, _, _), (ti, tst, _, _) = pair
+    chain = ti._scatter_link_duals_to_coupling(tst.duals_eq)
+    for iface in (ji, ti):
+        monkeypatch.setattr(iface, "sc_assembly", "scatter")
+    t = ti._scatter_link_duals_to_coupling(tst.duals_eq)
+    j = np.asarray(ji._scatter_link_duals_to_coupling(jst.duals_eq))
+    assert np.abs(_np(t) - j).max() <= 1e-12 * np.abs(j).max()
+    assert torch.equal(t, chain)
