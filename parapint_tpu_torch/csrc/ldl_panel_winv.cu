@@ -29,8 +29,9 @@
 //
 // What bounds it on an H100: the factorization is a chain of b dependent
 // rank-1 steps, each small (at most b^2 multiply-adds per panel).  Neither
-// bytes (2 or 3 x b^2 x 4 bytes per panel moved once) nor FLOPs (b^3/3 per
-// panel, b^3/2 with W) come close to the card's limits; the cost is first
+// bytes (2 or 3 x b^2 x 4 bytes per panel moved once) nor arithmetic (b^3/3
+// multiply-adds per panel, b^3/2 with W) comes close to the card's limits.
+// The cost is first
 // the serial chain of b steps, each ending in a barrier, then the
 // shared-memory traffic of the updates.  At B = 1 (the dense LDL^T's one
 // panel per step) one CTA runs on one SM and the call is pure latency.
