@@ -1,9 +1,12 @@
 """Smoke run of the PyTorch port on one CUDA card: build the kernels, hold
 each against its plain version, and drive the port's public entry points:
 the Burgers flagship (nfe_x=50, nfe_t=256, 64 blocks) on the dense block
-path, its solver variants and the banded path; the two-stage stochastic QP
-at the JAX package's ``stochastic_qp_32scenarios_1k`` size; the farmer; and
-the single-NLP examples through ``ip_solve``.
+path, its solver variants, the banded path and the heterogeneous
+interface; the two-stage stochastic QP at the JAX package's
+``stochastic_qp_32scenarios_1k`` size; the farmer; the single-NLP examples
+through ``ip_solve``; the matrix-free PCG coupling solver; and the
+condensed least-squares solver of the performance harness at the
+reference's default scale.
 
     python3 chip_smoke.py
 
@@ -68,6 +71,28 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      ``examples/dynamics.main()`` (the golden p(t)).
 12. banded flagship — the banded block form, ``BandedSchurComplementSolver``
                      (the bench flagship): optimal, K1 launches == 22 x numerics.
+13. heterogeneous  — the dense flagship as two kinds (block 0 with the
+                     initial-condition rows, blocks 1-63 without) through
+                     ``HeterogeneousDynamicInterface`` and the fused driver
+                     with the dense flagship's solver: optimal at the JAX
+                     objective, iterations within 1 of the JAX dense path's,
+                     K1 == 14 x numerics, K6 == 2 x back solves, a second
+                     solve repeating the first bit for bit.
+14. PCG            — bench_all's ``burgers_pcg_coupling_8blocks`` (nfe_x=50,
+                     nfe_t=32, 8 blocks, float32 KKT,
+                     ``PCGSchurComplementSolver(block_size=128,
+                     factor_dtype=float32)``) through the fused driver and
+                     ``ip_solve``: optimal at the JAX objective, iterations
+                     within 1, K1 == 8 x numerics, K6 == 2 x back solves + CG
+                     iterations.  Then the dense flagship's first KKT through
+                     PCG and the W-form solver with cyclic reduction: equal
+                     block inertia, solutions within 1e-5 x max|x|.
+15. condensed      — the harness's csc at the reference's default scale (3
+                     blocks, n_q 5000, x120: 605,010 variables per block),
+                     warm: status 0, max_err < 1.0, theta within 1e-8 of the
+                     JAX package's; launches per numeric and back solve under
+                     ``torch.profiler``; fs, ssc and csc at the CPU tests'
+                     size with equal max_err (rtol 1e-6).
 
 Every measurement line carries the card's name and power limit; kernel
 times are medians of CUDA-event windows (``tools/kernel_lab.py::timed_loop``).
@@ -159,6 +184,76 @@ DYNAMICS_GOLDEN_P = (1.6046242850486279, 2.0, 1.4792062911745605, 0.508244434149
                      -0.009859487375413882, 0.40043954978583834, 1.3619861771562247,
                      1.99059057528143, 1.7102013685364827)
 
+# JAX package's results for bench_all's burgers_pcg_coupling_8blocks and
+# the harness's csc at the reference's default scale, on the CPU with
+# JAX_PLATFORMS=cpu:
+#   import time, numpy as np, jax, jax.numpy as jnp, parapint_tpu as pt
+#   from parapint_tpu.examples import burgers
+#   from parapint_tpu.utils.timer import HierarchicalTimer
+#   def run(fused):
+#       iface = pt.DynamicSchurComplementInteriorPointInterface(
+#           burgers.build_spec(nfe_x=50, nfe_t=32, num_time_blocks=8), kkt_dtype=jnp.float32)
+#       opts = pt.IPOptions(); opts.tol = 1e-8
+#       opts.linalg.solver = pt.PCGSchurComplementSolver(block_size=128,
+#                                                         factor_dtype=jnp.float32)
+#       if fused:
+#           status, res = pt.ip_solve_fused(iface, opts); n = int(res.iterations)
+#       else:
+#           timer = HierarchicalTimer(); status = pt.ip_solve(iface, opts, timer=timer)
+#           n = timer._root.children["IP solve"].children["convergence check"].count
+#       print(status, n, repr(float(iface.evaluate_objective())))
+#   run(True)   # -> InteriorPointStatus.optimal 7 0.047561186977622474
+#   run(False)  # -> InteriorPointStatus.optimal 6 0.047561186977352635
+#   from parapint_tpu.examples.performance.schur_complement import SyntheticModel
+#   from parapint_tpu.linalg import CondensedLSQKKT, CondensedLSQSolver
+#   m = SyntheticModel(n_blocks=3, n_q_per_block=5000, n_y_multiplier=120, n_theta=10)
+#   solver = CondensedLSQSolver(tile_size=128)
+#   kkt = CondensedLSQKKT(A_bands=jnp.asarray(m.A_bands), q_c=jnp.zeros((10, 10)),
+#                         n_t=10, n_blocks=3)
+#   fact = jax.jit(solver.numeric)(kkt)
+#   x = jax.jit(lambda f, r: solver.solve(f, r, kkt=kkt))(fact, m.build_rhs())
+#   print(int(solver.status(fact)), repr(m.check_result(x.blocks)),
+#         repr(np.asarray(x.coupling).tolist()))
+#   # -> 0 0.1295882542007245 CSC_JAX_THETA
+PCG_SHAPE = dict(nfe_x=50, nfe_t=32, num_time_blocks=8)
+PCG_JAX_OBJECTIVE, PCG_JAX_ITERATIONS = 0.047561186977622474, 7
+PCG_JAX_IP_OBJECTIVE, PCG_JAX_IP_ITERATIONS = 0.047561186977352635, 6
+PCG_K1_PER_NUMERIC = 8  # the block panels only: 1024 = 8 x 128, no cyclic reduction
+# CG iterations of PCG (float32 factors) on the first KKT of the dense
+# flagship's per-block shape (nfe_x=50, 4 time steps per block) cut to N
+# blocks, JAX package and port on the CPU (JAX_PLATFORMS=cpu, from the
+# repository root):
+#   import sys, jax, numpy as np, jax.numpy as jnp, torch, parapint_tpu as pt
+#   import parapint_tpu_torch as ptt
+#   sys.path.insert(0, "tests"); from test_torch_pcg_schur import jax_cg_iterations
+#   from parapint_tpu.examples import burgers
+#   from parapint_tpu_torch.convert import block_kkt_from_numpy, block_rhs_from_numpy
+#   for N in (8, 16, 32):
+#       iface = pt.DynamicSchurComplementInteriorPointInterface(
+#           burgers.build_spec(nfe_x=50, nfe_t=4 * N, num_time_blocks=N), kkt_dtype=jnp.float32)
+#       data = iface.eval_kkt_data(iface.init_state(), pt.IPOptions().init_barrier_parameter)
+#       kkt, rhs = iface.assemble_kkt(data, 0.0, 0.0), iface.kkt_rhs(data)
+#       js = pt.PCGSchurComplementSolver(block_size=128, factor_dtype=jnp.float32)
+#       jf = js.numeric(kkt); _, jst = js.solve_with_status(jf, rhs)
+#       as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+#       ts = ptt.PCGSchurComplementSolver(block_size=128, factor_dtype=torch.float32)
+#       _, tst = ts.solve_with_status(ts.numeric(block_kkt_from_numpy(as_np(kkt), "cpu")),
+#                                     block_rhs_from_numpy(as_np(rhs), "cpu"))
+#       print(N, int(jst), jax_cg_iterations(js, jf, rhs), int(tst), ts.cg_iterations)
+#   # -> 8 0 109 0 [109] / 16 0 128 0 [128] / 32 0 176 0 [176]
+PCG_DEPTH_JAX_CG = {8: 109, 16: 128, 32: 176}
+PCG_DEPTH_BLOCKS = 32
+# PCG against the explicit solver on the flagship's first KKT, both with
+# float32 factors: tests/test_torch_pcg_schur.py's float32 bound
+PCG_SOLUTION_RTOL = 1e-5
+CSC_REF = dict(n_blocks=3, n_q_per_block=5000, n_y_multiplier=120)  # 605,010 variables per block
+CSC_JAX_MAX_ERR = 0.1295882542007245
+CSC_JAX_THETA = (5.394658970325689, 0.45759233755419837, 7.001338872474145, 7.929935842062897,
+                 6.432769848180054, 6.209609093964085, 3.423217873414951, 3.7381404883838423,
+                 5.099829275933965, 5.701876365885636)
+CSC_THETA_RTOL = 1e-8
+CSC_SMALL = dict(n_blocks=4, n_q_per_block=32, n_y_multiplier=2, n_theta=5)  # tests/test_examples.py
+
 # Panel kernels: kernel and plain version run the same float32 operations in
 # the same order per entry (each product rounded before its subtraction, no
 # fused multiply-add, IEEE division), so the lower triangle of LD and W must
@@ -179,6 +274,8 @@ K6_TOL = 2.0
 LD_SOLUTION_RTOL = 1e-3
 
 SMI = ""
+# the host-side launch calls that ``torch.profiler`` records, one per kernel
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 
 def say(*parts):
@@ -487,6 +584,30 @@ def _dense_iface():
     return iface
 
 
+def burgers_two_kinds(spec, kkt_dtype=None):
+    """The Burgers family of ``spec`` (a uniform ``DynamicModelSpec``) as a
+    ``HeterogeneousDynamicInterface`` of two kinds: kind 0 (block 0) keeps
+    every equality row, kind 1 (the other blocks) lacks the
+    initial-condition rows that the uniform spec masks out there."""
+    import parapint_tpu_torch as ptt
+
+    dev = spec.device
+    keep = torch.as_tensor(np.nonzero(spec.eq_mask[1])[0], device=dev)
+    t0 = spec.params["t0"]
+    kw = dict(objective=spec.objective, n_x=spec.n_x, xl=spec.xl[0], xu=spec.xu[0],
+              start_state_idx=spec.start_state_idx, end_state_idx=spec.end_state_idx,
+              example_params={"t0": t0[0]})
+    kinds = [
+        ptt.KindSpec(eq_constraints=spec.eq_constraints, **kw),
+        ptt.KindSpec(eq_constraints=lambda x, p: spec.eq_constraints(x, p)[keep], **kw),
+    ]
+    N = spec.num_blocks
+    return ptt.HeterogeneousDynamicInterface(
+        kinds, [0] + [1] * (N - 1), [{"t0": t0[b]} for b in range(N)],
+        [spec.x0[b].cpu().numpy() for b in range(N)], kkt_dtype=kkt_dtype, device=dev,
+    )
+
+
 def _objective_gap(iface, result, label, ref=JAX_OBJECTIVE):
     import parapint_tpu_torch as ptt
 
@@ -501,6 +622,23 @@ def _objective_gap(iface, result, label, ref=JAX_OBJECTIVE):
     if gap > OBJ_REL_GAP:
         raise AssertionError(f"{label}: objective {obj!r}, gap {gap} to JAX {ref!r} > {OBJ_REL_GAP}")
     return obj, gap
+
+
+def _reset_solver(solver):
+    for attr in ("n_numeric", "n_solves"):
+        if hasattr(solver, attr):
+            setattr(solver, attr, 0)
+    if hasattr(solver, "cg_iterations"):
+        solver.cg_iterations = []
+
+
+def _solver_counts(solver, counts):
+    """The solver's numerics, back solves and (PCG) CG iterations per back
+    solve, added to ``counts``."""
+    counts["numerics"] = solver.n_numeric
+    counts["solves"] = getattr(solver, "n_solves", None)
+    if hasattr(solver, "cg_iterations"):
+        counts["cg"] = list(solver.cg_iterations)
 
 
 def _counted_solve(iface, solver, label, timed=0, ref=JAX_OBJECTIVE, tol=TOL, repeat=False):
@@ -518,17 +656,14 @@ def _counted_solve(iface, solver, label, timed=0, ref=JAX_OBJECTIVE, tol=TOL, re
     iface.set_bounds_relaxation_factor(opts.bounds_relaxation_factor)
     state0 = iface.init_state()
     _reset_counts()
-    for attr in ("n_numeric", "n_solves"):
-        if hasattr(solver, attr):
-            setattr(solver, attr, 0)
+    _reset_solver(solver)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = solve(state0)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     counts = _counts()
-    counts["numerics"] = solver.n_numeric
-    counts["solves"] = getattr(solver, "n_solves", None)
+    _solver_counts(solver, counts)
     obj, gap = _objective_gap(iface, result, label, ref)
     counts["iterations"], counts["objective"] = result.iterations, obj
     walls, repeats = [], []
@@ -765,6 +900,40 @@ def _timer_lines(timer, depth=3):
     return "; ".join(out)
 
 
+def _counted_ip_solve(iface, solver, label, ref, ref_iters, tol=TOL):
+    """One ``ip_solve`` with every count zeroed just before and read just
+    after: optimal, the JAX objective and iterations within 1 of
+    ``ref_iters`` (``ip_solve`` iterations are its convergence checks)."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.utils.timer import HierarchicalTimer
+
+    opts = ptt.IPOptions()
+    opts.tol = tol
+    opts.linalg.solver = solver
+    timer = HierarchicalTimer()
+    _reset_counts()
+    _reset_solver(solver)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = ptt.ip_solve(iface, opts, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    _solver_counts(solver, c)
+    n_iter = timer._root.children["IP solve"].children["convergence check"].count
+    obj = float(iface.evaluate_objective())
+    gap = abs(obj - ref) / max(1.0, abs(ref))
+    c["iterations"], c["objective"] = n_iter, obj
+    say(f"{label}: status {status.name}, iterations {n_iter} (JAX {ref_iters}), "
+        f"objective {obj!r} (JAX {ref!r}, rel gap {gap:.3e}), wall {wall:.4f} s, launches {c}")
+    say(f"{label} phases: {_timer_lines(timer)}")
+    if status != ptt.InteriorPointStatus.optimal or gap > OBJ_REL_GAP:
+        raise AssertionError(f"{label}: {status.name}, gap {gap}")
+    if abs(n_iter - ref_iters) > 1:
+        raise AssertionError(f"{label}: {n_iter} iterations, JAX {ref_iters}")
+    return c
+
+
 def phase_stochastic_qp(device="cuda", shape=QP, ref=QP_JAX_OBJECTIVE,
                         ref_iters=(QP_JAX_ITERATIONS, QP_JAX_IP_ITERATIONS)):
     """The two-stage stochastic QP through both drivers.  The float32 KKT
@@ -772,7 +941,6 @@ def phase_stochastic_qp(device="cuda", shape=QP, ref=QP_JAX_OBJECTIVE,
     in the JAX package for the same configuration."""
     import parapint_tpu_torch as ptt
     from parapint_tpu_torch.examples import stochastic
-    from parapint_tpu_torch.utils.timer import HierarchicalTimer
 
     def solver():
         return ptt.SchurComplementSolver(
@@ -799,31 +967,9 @@ def phase_stochastic_qp(device="cuda", shape=QP, ref=QP_JAX_OBJECTIVE,
     if abs(c["iterations"] - ref_iters[0]) > 1:
         raise AssertionError(f"stochastic QP fused: {c['iterations']} iterations, JAX {ref_iters[0]}")
 
-    s = solver()
-    opts = ptt.IPOptions()
-    opts.tol = TOL
-    opts.linalg.solver = s
-    timer = HierarchicalTimer()
-    _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    status = ptt.ip_solve(iface, opts, timer=timer)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    c_ip = _counts()
-    c_ip["numerics"], c_ip["solves"] = s.n_numeric, s.n_solves
-    n_iter = timer._root.children["IP solve"].children["convergence check"].count
-    obj = float(iface.evaluate_objective())
-    gap = abs(obj - ref) / max(1.0, abs(ref))
-    say(f"stochastic QP ip_solve: status {status.name}, iterations {n_iter} (JAX {ref_iters[1]}), "
-        f"objective {obj!r} (JAX {ref!r}, rel gap {gap:.3e}), wall {wall:.4f} s, "
-        f"K5 {c_ip['K5']} for {c_ip['numerics']} numerics, K6 {c_ip['K6']} for "
-        f"{c_ip['solves']} back solves, launches {c_ip}")
-    say(f"stochastic QP ip_solve phases: {_timer_lines(timer)}")
-    if status != ptt.InteriorPointStatus.optimal or gap > OBJ_REL_GAP:
-        raise AssertionError(f"stochastic QP ip_solve: {status.name}, gap {gap}")
-    if abs(n_iter - ref_iters[1]) > 1:
-        raise AssertionError(f"stochastic QP ip_solve: {n_iter} iterations, JAX {ref_iters[1]}")
+    c_ip = _counted_ip_solve(iface, solver(), "stochastic QP ip_solve", ref, ref_iters[1])
+    print(f"stochastic QP ip_solve: K5 {c_ip['K5']} for {c_ip['numerics']} numerics, "
+          f"K6 {c_ip['K6']} for {c_ip['solves']} back solves")
     kernels_ok(c_ip, "stochastic QP ip_solve")
     return c, c_ip
 
@@ -877,6 +1023,199 @@ def phase_single(device="cuda"):
         raise AssertionError(f"dynamics example: p(t) {p.tolist()}")
 
 
+def phase_heterogeneous():
+    """The dense flagship as two kinds (``burgers_two_kinds``) through
+    ``make_fused_ip_solve`` with the dense flagship's solver: optimal at
+    the JAX objective, iterations within 1 of the JAX dense path's, K1 ==
+    14 x numerics, K6 == 2 x back solves, and a second solve from the same
+    state repeats the first bit for bit."""
+    from parapint_tpu_torch.examples import burgers
+
+    t0 = time.perf_counter()
+    iface = burgers_two_kinds(burgers.build_spec(**FLAGSHIP), kkt_dtype=torch.float32)
+    print(f"heterogeneous interface {FLAGSHIP}, two kinds (eq rows {iface.eq_mask[0].sum().item()} "
+          f"and {iface.eq_mask[1].sum().item()} of {iface.me}): nk {iface.nk} ncv {iface.ncv} "
+          f"setup {time.perf_counter() - t0:.2f} s")
+    result, c = _counted_solve(iface, _dense_solver("cr"), "heterogeneous flagship", timed=1,
+                               repeat=True)
+    print(f"heterogeneous flagship: iterations {c['iterations']} (JAX dense path "
+          f"{JAX_DENSE_ITERATIONS}); K1 {c['K1']} for {c['numerics']} numerics, K6 {c['K6']} for "
+          f"{c['solves']} back solves [{SMI}]")
+    if abs(c["iterations"] - JAX_DENSE_ITERATIONS) > 1:
+        raise AssertionError(f"heterogeneous flagship: {c['iterations']} iterations")
+    if not (c["K1"] > 0 and c["K1"] == DENSE_K1_PER_NUMERIC * c["numerics"]):
+        raise AssertionError(f"heterogeneous: K1 {c['K1']} launches for {c['numerics']} numerics")
+    if not (c["K6"] > 0 and c["K6"] == 2 * c["solves"]):
+        raise AssertionError(f"heterogeneous: K6 {c['K6']} launches for {c['solves']} back solves")
+    return c
+
+
+def _pcg_solver():
+    import parapint_tpu_torch as ptt
+
+    return ptt.PCGSchurComplementSolver(block_size=128, factor_dtype=torch.float32)
+
+
+def _pcg_kernels_ok(c, label):
+    """K1 on the block panels only (no cyclic reduction), K6 twice per back
+    solve plus once per CG iteration."""
+    print(f"{label}: K1 {c['K1']} for {c['numerics']} numerics, K6 {c['K6']} for {c['solves']} "
+          f"back solves and {sum(c['cg'])} CG iterations (per back solve {c['cg']}) [{SMI}]")
+    if not (c["K1"] > 0 and c["K1"] == PCG_K1_PER_NUMERIC * c["numerics"]):
+        raise AssertionError(f"{label}: K1 {c['K1']} launches for {c['numerics']} numerics")
+    if not (c["K6"] > 0 and c["K6"] == 2 * c["solves"] + sum(c["cg"])):
+        raise AssertionError(f"{label}: K6 {c['K6']} launches for {c['solves']} back solves")
+
+
+def phase_pcg():
+    """bench_all's ``burgers_pcg_coupling_8blocks`` through both drivers."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import burgers
+
+    t0 = time.perf_counter()
+    iface = ptt.DynamicSchurComplementInteriorPointInterface(
+        burgers.build_spec(**PCG_SHAPE), kkt_dtype=torch.float32
+    )
+    print(f"PCG interface {PCG_SHAPE}: nk {iface.nk} ns {iface.ns} ncv {iface.ncv} "
+          f"setup {time.perf_counter() - t0:.2f} s")
+    _, c = _counted_solve(iface, _pcg_solver(), "PCG 8 blocks fused", timed=1, ref=PCG_JAX_OBJECTIVE)
+    if abs(c["iterations"] - PCG_JAX_ITERATIONS) > 1:
+        raise AssertionError(f"PCG fused: {c['iterations']} iterations, JAX {PCG_JAX_ITERATIONS}")
+    _pcg_kernels_ok(c, "PCG 8 blocks fused")
+    c_ip = _counted_ip_solve(iface, _pcg_solver(), "PCG 8 blocks ip_solve", PCG_JAX_IP_OBJECTIVE,
+                             PCG_JAX_IP_ITERATIONS)
+    _pcg_kernels_ok(c_ip, "PCG 8 blocks ip_solve")
+    return c, c_ip
+
+
+def _pcg_against_sc(iface, label):
+    """The first KKT of ``iface`` through PCG and through the W-form
+    ``SchurComplementSolver`` with cyclic reduction (adaptive refinement),
+    both with float32 factors: block inertia equal, the explicit solve
+    successful; returns (PCG status, CG iterations, max|dx|, max|x|)."""
+    import parapint_tpu_torch as ptt
+
+    kkt, rhs = _first_kkt(iface)
+    pcg = _pcg_solver()
+    _reset_counts()
+    t0 = time.perf_counter()
+    fact = pcg.numeric(kkt)
+    x, status = pcg.solve_with_status(fact, rhs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    sc = ptt.SchurComplementSolver(
+        block_size=128, explicit_inverse=True, factor_dtype=torch.float32,
+        schur_complement_solver=ptt.BlockTridiagSolver(),
+    )
+    sfact = sc.numeric(kkt)
+    sx, sstatus = sc.solve_with_status(sfact, rhs)
+    nc = kkt.q.shape[0]
+    as_t = lambda v: tuple(int(a) for a in v)
+    pcg_blk = as_t(fact.inertia.cpu() - torch.tensor([nc, 0, 0], dtype=torch.int32))
+    sc_part = as_t(sc.sc_solver.inertia(sfact.sc_fact))
+    sc_blk = tuple(a - b for a, b in zip(as_t(sfact.inertia.cpu()), sc_part))
+    flat = lambda b: torch.cat([b.blocks.reshape(-1), b.coupling])
+    dx = (flat(x) - flat(sx)).abs().max().item()
+    scale = flat(sx).abs().max().item()
+    say(f"{label} (ncv {nc}): status PCG {int(status)} explicit {int(sstatus)}, block inertia PCG "
+        f"{pcg_blk} explicit {sc_blk} (its SC {sc_part}), CG iterations {pcg.cg_iterations}, "
+        f"max|dx| {dx:.3e} (max|x| {scale:.3e}, tol {PCG_SOLUTION_RTOL} x max|x|), PCG numeric + "
+        f"solve {wall:.4f} s, launches {c}")
+    if pcg_blk != sc_blk or int(sstatus) != 0:
+        raise AssertionError(f"{label}: block inertia or the explicit solve's status differs")
+    return int(status), pcg.cg_iterations[0], dx, scale
+
+
+def phase_pcg_first_kkt(flagship_iface):
+    """PCG on the first KKT of the dense flagship's per-block shape, cut to
+    32 blocks (converged, the solutions within PCG_SOLUTION_RTOL x max|x|),
+    and of the dense flagship itself, where the reference's CG budget runs
+    out: its CG iterations grow with the block count (PCG_DEPTH_JAX_CG, the
+    same in both packages), so it must either converge as at 32 blocks or
+    stop with status error after exactly CG_MAXITER iterations."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import burgers
+    from parapint_tpu_torch.linalg.pcg_schur import CG_MAXITER
+
+    n = PCG_DEPTH_BLOCKS
+    iface = ptt.DynamicSchurComplementInteriorPointInterface(
+        burgers.build_spec(nfe_x=50, nfe_t=4 * n, num_time_blocks=n), kkt_dtype=torch.float32
+    )
+    label = f"PCG first KKT, {n} blocks"
+    status, cg, dx, scale = _pcg_against_sc(iface, label)
+    print(f"{label}: CG iterations {cg} (JAX {PCG_DEPTH_JAX_CG[n]} on the CPU) [{SMI}]")
+    if status != 0 or not dx <= PCG_SOLUTION_RTOL * scale:
+        raise AssertionError(f"{label}: status {status}, solutions differ by {dx}")
+    label = "PCG first KKT, dense flagship"
+    status, cg, dx, scale = _pcg_against_sc(flagship_iface, label)
+    converged = status == 0 and dx <= PCG_SOLUTION_RTOL * scale
+    budget = status == int(ptt.LinearSolverStatus.error) and cg == CG_MAXITER
+    print(f"{label}: {'converged' if converged else f'CG budget of {CG_MAXITER} spent'} [{SMI}]")
+    if not (converged or budget):
+        raise AssertionError(f"{label}: status {status} after {cg} CG iterations, max|dx| {dx}")
+
+
+def _launches(fn):
+    """(result, kernel launches, summed kernel device ms) of one call under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    dev = sum(e.self_device_time_total for e in ka
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return out, sum(e.count for e in ka if e.key in LAUNCH_CALLS), dev
+
+
+def phase_condensed(device="cuda"):
+    """The harness's csc at the reference's default scale (warm numeric and
+    back solve), its launches per numeric, then fs, ssc and csc at the
+    small size of the CPU tests."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples.performance import schur_complement as perf
+
+    t0 = time.perf_counter()
+    r = perf.run(method="csc", **CSC_REF, warm=True, device=device)
+    wall = time.perf_counter() - t0
+    theta_err = float(np.abs(r.theta - np.asarray(CSC_JAX_THETA)).max() / np.abs(CSC_JAX_THETA).max())
+    say(f"csc {CSC_REF}: status {r.status}, max_err {r.max_err!r} (JAX {CSC_JAX_MAX_ERR!r}; < 1.0), "
+        f"theta rel err to JAX {theta_err:.3e} (tol {CSC_THETA_RTOL}), warm numeric "
+        f"{r.numeric_time:.4f} s, warm back solve {r.back_solve_time:.4f} s, symbolic "
+        f"{r.symbolic_time:.4f} s, run wall {wall:.2f} s")
+    if r.status != 0 or not r.max_err < 1.0 or not theta_err <= CSC_THETA_RTOL:
+        raise AssertionError(f"csc: status {r.status}, max_err {r.max_err}, theta error {theta_err}")
+
+    m = perf.SyntheticModel(n_blocks=CSC_REF["n_blocks"], n_q_per_block=CSC_REF["n_q_per_block"],
+                            n_y_multiplier=CSC_REF["n_y_multiplier"])
+    kkt = ptt.CondensedLSQKKT(
+        A_bands=torch.as_tensor(m.A_bands, device=device),
+        q_c=torch.zeros((m.n_theta, m.n_theta), dtype=torch.float64, device=device),
+        n_t=m.n_theta, n_blocks=m.n_blocks,
+    )
+    solver = ptt.CondensedLSQSolver(tile_size=128)
+    rhs = m.build_rhs(device)
+    _reset_counts()
+    fact, n_num, dev_num = _launches(lambda: solver.numeric(kkt))
+    _, n_sol, dev_sol = _launches(lambda: solver.solve(fact, rhs, kkt=kkt))
+    c = _counts()
+    say(f"csc launches: numeric {n_num} (kernel device time {dev_num:.2f} ms), back solve {n_sol} "
+        f"({dev_sol:.2f} ms); nk {m.nk}, G tiles {fact.g_fact.m}, CR levels {len(fact.g_fact.tinv)}, "
+        f"panel-kernel counts {c}")
+
+    small = {}
+    for method in ("fs", "ssc", "csc"):
+        small[method] = perf.run(method=method, **CSC_SMALL, verbose=False, device=device)
+    errs = {k: v.max_err for k, v in small.items()}
+    say(f"harness at {CSC_SMALL}: max_err {errs}, status {[v.status for v in small.values()]}")
+    for k, v in small.items():
+        if v.status != 0 or not np.isclose(v.max_err, errs["fs"], rtol=1e-6):
+            raise AssertionError(f"harness {k}: status {v.status}, max_err {v.max_err} vs fs {errs['fs']}")
+    return dict(numeric_launches=n_num, solve_launches=n_sol)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -902,6 +1241,12 @@ def main():
     phase_farmer()
     phase_single()
     banded = phase_banded()
+    phase_heterogeneous()
+    torch.cuda.empty_cache()
+    phase_pcg()
+    phase_pcg_first_kkt(_dense_iface())
+    torch.cuda.empty_cache()
+    phase_condensed()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     src = "parapint_tpu_torch/csrc/ldl_panel_winv.cu"

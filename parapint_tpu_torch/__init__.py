@@ -29,18 +29,23 @@ from parapint_tpu_torch.options import (  # noqa: E402
 from parapint_tpu_torch.linalg import (  # noqa: E402
     BandedSchurComplementSolver,
     BlockTridiagSolver,
+    CondensedLSQKKT,
+    CondensedLSQSolver,
     DenseLDLSolver,
     DenseLUSolver,
     LinearSolver,
     LinearSolverResults,
     LinearSolverStatus,
+    PCGSchurComplementSolver,
     SchurComplementSolver,
 )
 from parapint_tpu_torch.models import NLPModel  # noqa: E402
 from parapint_tpu_torch.interfaces import (  # noqa: E402
     DynamicModelSpec,
     DynamicSchurComplementInteriorPointInterface,
+    HeterogeneousDynamicInterface,
     InteriorPointInterface,
+    KindSpec,
     StochasticModelSpec,
     StochasticSchurComplementInteriorPointInterface,
 )
@@ -67,12 +72,17 @@ __all__ = [
     "DenseLDLSolver",
     "DenseLUSolver",
     "SchurComplementSolver",
+    "PCGSchurComplementSolver",
+    "CondensedLSQKKT",
+    "CondensedLSQSolver",
     "NLPModel",
     "InteriorPointInterface",
     "DynamicModelSpec",
     "DynamicSchurComplementInteriorPointInterface",
     "StochasticModelSpec",
     "StochasticSchurComplementInteriorPointInterface",
+    "KindSpec",
+    "HeterogeneousDynamicInterface",
     "FusedResult",
     "InteriorPointStatus",
     "ip_solve",

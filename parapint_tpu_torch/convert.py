@@ -97,3 +97,20 @@ def block_kkt_from_numpy(kkt, device):
         q=_t(kkt.q, device),
         mask=_t(kkt.mask, device),
     )
+
+
+def condensed_kkt_from_numpy(A_bands, q_c, n_t: int, n_blocks: int, device):
+    """The port's ``CondensedLSQKKT`` from the JAX package's fields (the
+    band store and Q as numpy, dtypes kept)."""
+    from parapint_tpu_torch.linalg.condensed import CondensedLSQKKT
+
+    return CondensedLSQKKT(
+        A_bands=_t(A_bands, device), q_c=_t(q_c, device), n_t=int(n_t), n_blocks=int(n_blocks)
+    )
+
+
+def kind_params_from_numpy(params_per_block, device) -> list:
+    """Per-block parameter dicts of ``HeterogeneousDynamicInterface`` from
+    the JAX package's (dicts of arrays or scalars), as tensors on
+    ``device`` with numpy's dtypes (a Python float becomes float64)."""
+    return [{k: _t(v, device) for k, v in p.items()} for p in params_per_block]

@@ -58,6 +58,8 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
       self.fns (BatchedNLPFunctions), self.params (dict of tensors)
       self.eq_mask / ineq_mask / x_mask  (bool tensors, (N, dim))
       self.link_sel (n_link,) numpy int, selected x index of each link row
+        (or, where the selected index differs per block, self.link_rows
+        (N, n_link, n) float64 selector rows on the device and no link_sel)
       self.link_mask (N, n_link) float64, self.row_idx (N, n_link) int64
       self._xl/_xu (N, n), self._gl/_gu (N, mi) raw bounds (numpy)
       self.x0 (N, n) float64 initial primals
@@ -91,11 +93,12 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         self._current_state = None
 
         # dense (N, n_link, n) link selectors, built once on the device
-        self.link_rows = torch.as_tensor(
-            selector_rows(self.link_sel, self.link_mask.cpu().numpy(), self.n),
-            dtype=F64,
-            device=self.device,
-        )
+        if getattr(self, "link_sel", None) is not None:
+            self.link_rows = torch.as_tensor(
+                selector_rows(self.link_sel, self.link_mask.cpu().numpy(), self.n),
+                dtype=F64,
+                device=self.device,
+            )
 
         kd = kkt_dtype or F64
         self._link_rows_kkt = self.link_rows.to(kd)
@@ -240,6 +243,9 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
 
     def get_primals(self):
         return self._current_state.primals
+
+    def get_coupling_values(self):
+        return self._current_state.primals["coupling"]
 
     def evaluate_objective(self):
         x = self._current_state.primals["blocks"]

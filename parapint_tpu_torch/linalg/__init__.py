@@ -1,6 +1,6 @@
-"""Linear solver layer: the Schur-complement solvers (dense-block and
-banded), the dense LDL^T / LU solvers and the cyclic-reduction coupling
-solver."""
+"""Linear solver layer: the Schur-complement solvers (dense-block, banded
+and matrix-free PCG), the condensed least-squares solver, the dense
+LDL^T / LU solvers and the cyclic-reduction coupling solver."""
 
 from parapint_tpu_torch.linalg.results import LinearSolverResults, LinearSolverStatus
 from parapint_tpu_torch.linalg.base import LinearSolver
@@ -17,6 +17,8 @@ from parapint_tpu_torch.linalg.banded_schur import (
     BandedLocalBlockKKT,
     BandedSchurComplementSolver,
 )
+from parapint_tpu_torch.linalg.pcg_schur import PCGSchurComplementSolver
+from parapint_tpu_torch.linalg.condensed import CondensedLSQKKT, CondensedLSQSolver
 
 __all__ = [
     "LinearSolverStatus",
@@ -33,4 +35,7 @@ __all__ = [
     "BlockTridiagSolver",
     "BandedLocalBlockKKT",
     "BandedSchurComplementSolver",
+    "PCGSchurComplementSolver",
+    "CondensedLSQKKT",
+    "CondensedLSQSolver",
 ]

@@ -19,8 +19,8 @@ from parapint_tpu_torch.linalg.base import LinearSolver
 from parapint_tpu_torch.linalg.results import LinearSolverResults, LinearSolverStatus
 from parapint_tpu_torch.linalg.schur import _factor_blocks_winv
 
-# panel width of the level factorizations: ns-wide tiles (49 on the Burgers
-# chain) snap up to one 56-wide panel
+# default panel width of the level factorizations: ns-wide tiles (49 on the
+# Burgers chain) snap up to one 56-wide panel
 BLOCK_SIZE = 64
 
 
@@ -96,8 +96,9 @@ def _winv_to_inverse(W, d, s, ns: int):
     return Minv * s[:, :, None] * s[:, None, :]
 
 
-def cr_factor(tri: BlockTridiag) -> CRFactor:
-    """Factor a symmetric block-tridiagonal matrix by cyclic reduction."""
+def cr_factor(tri: BlockTridiag, block_size: int = BLOCK_SIZE) -> CRFactor:
+    """Factor a symmetric block-tridiagonal matrix by cyclic reduction;
+    ``block_size`` is the panel width of the level factorizations."""
     m, ns = tri.m, tri.ns
     M = _next_pow2m1(m)
     diag, upper = tri.diag, tri.upper
@@ -118,7 +119,7 @@ def cr_factor(tri: BlockTridiag) -> CRFactor:
     while True:
         K = (M - 1) // 2
         W, d, s, lvl_inertia, lvl_status = _factor_blocks_winv(
-            diag[0::2], mask[0::2], BLOCK_SIZE
+            diag[0::2], mask[0::2], block_size
         )
         tinv = _winv_to_inverse(W, d, s, ns).to(dt)
         inertia = inertia + lvl_inertia
@@ -154,11 +155,15 @@ def cr_factor(tri: BlockTridiag) -> CRFactor:
     )
 
 
-def _mv(A, v):  # (k, ns, ns) @ (k, ns) -> (k, ns)
+def _mv(A, v):  # (k, ns, ns) @ (k, ns[, c]) -> (k, ns[, c])
+    if v.dim() == 3:
+        return A.to(v.dtype) @ v
     return (A.to(v.dtype) @ v[:, :, None])[..., 0]
 
 
-def _mtv(A, v):  # (k, ns, ns)^T @ (k, ns) -> (k, ns)
+def _mtv(A, v):  # (k, ns, ns)^T @ (k, ns[, c]) -> (k, ns[, c])
+    if v.dim() == 3:
+        return A.to(v.dtype).transpose(1, 2) @ v
     return (v[:, None, :] @ A.to(v.dtype))[:, 0, :]
 
 
@@ -167,11 +172,24 @@ def cr_solve(fact: CRFactor, r: torch.Tensor) -> torch.Tensor:
     (m, ns), returns the same shape."""
     ns = fact.ns
     flat = r.dim() == 1
-    r = r.reshape(-1, ns)
+    x = _cr_solve_tiles(fact, r.reshape(-1, ns))
+    return x.reshape(-1) if flat else x
+
+
+def cr_solve_cols(fact: CRFactor, R: torch.Tensor) -> torch.Tensor:
+    """Solve S X = R for the columns of R (nc, c) at once."""
+    nc, c = R.shape
+    return _cr_solve_tiles(fact, R.reshape(-1, fact.ns, c)).reshape(nc, c)
+
+
+def _cr_solve_tiles(fact: CRFactor, r: torch.Tensor) -> torch.Tensor:
+    """The cyclic-reduction solve on tile rows r (m, ns) or (m, ns, c)."""
+    ns = fact.ns
+    tail = r.shape[1:]
     m = r.shape[0]
     M = _next_pow2m1(m)
     if M != m:
-        r = torch.cat([r, r.new_zeros((M - m, ns))], dim=0)
+        r = torch.cat([r, r.new_zeros((M - m, *tail))], dim=0)
     # forward sweep: fold eliminated tiles into the kept rhs
     zs = []
     for lvl in range(len(fact.tinv) - 1):
@@ -186,7 +204,7 @@ def cr_solve(fact: CRFactor, r: torch.Tensor) -> torch.Tensor:
         tinv, Ue, Uo = fact.tinv[lvl], fact.ue[lvl], fact.uo[lvl]
         K = Ue.shape[0]
         E = K + 1
-        zero = x.new_zeros((1, ns))
+        zero = x.new_zeros((1, *tail))
         xk_pad = torch.cat([zero, x, zero], dim=0)  # (K+2, ns)
         zt = Uo.new_zeros((1, ns, ns))
         uo_shift = torch.cat([zt, Uo], dim=0)  # U_{2p-1}
@@ -194,12 +212,11 @@ def cr_solve(fact: CRFactor, r: torch.Tensor) -> torch.Tensor:
         # x_e[p] = Tinv_{2p} (r_e[p] - U_{2p-1}^T x_kept[p-1] - U_{2p} x_kept[p])
         corr = _mtv(uo_shift, xk_pad[:E]) + _mv(ue_ext, xk_pad[1 : E + 1])
         xe = zs[lvl] - _mv(tinv, corr)
-        out = x.new_empty((2 * K + 1, ns))
+        out = x.new_empty((2 * K + 1, *tail))
         out[0::2] = xe
         out[1::2] = x
         x = out
-    x = x[:m]
-    return x.reshape(-1) if flat else x
+    return x[:m]
 
 
 class BlockTridiagSolver(LinearSolver):

@@ -1,14 +1,73 @@
-"""Symmetric banded matrices: storage, matvec and block-tridiagonal tiling.
+"""Banded matrices: storage, products and block-tridiagonal tiling
+(counterpart of ``parapint_tpu.ops.banded``).
 
-Counterpart of the banded-solver subset of ``parapint_tpu.ops.banded``.  A
-symmetric matrix G with half-bandwidth p is stored as its lower bands,
-``sym_bands[e, i] = G[i + e, i]`` for e in [0, p].  Tiled into ts x ts tiles
-with ts >= p it is block-tridiagonal, which the banded Schur solver factors
-by a block-Thomas sweep.
+A general banded matrix B (n x n) with bands d in [-p, p] is stored
+row-indexed, ``bands[d + p, i] = B[i, i + d]`` (zero where the column falls
+outside [0, n)).  A symmetric matrix G with half-bandwidth p is stored as
+its lower bands, ``sym_bands[e, i] = G[i + e, i]`` for e in [0, p].  Tiled
+into ts x ts tiles with ts >= p it is block-tridiagonal, which the banded
+Schur solver factors by a block-Thomas sweep and the condensed solver by
+cyclic reduction.
+
+Every function is an O(n p) (``banded_btb``: O(n p^2)) stencil of shifted
+slices; leading batch dimensions broadcast.
 """
 
 import torch
 import torch.nn.functional as F
+
+
+def _shift(v: torch.Tensor, d: int) -> torch.Tensor:
+    """out[..., i] = v[..., i - d] where 0 <= i - d < n, else 0."""
+    n = v.shape[-1]
+    if d >= 0:
+        return F.pad(v[..., : n - d], (d, 0))
+    return F.pad(v[..., -d:], (0, -d))
+
+
+def banded_matvec(bands: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """B @ x for row-indexed band stores: bands (..., 2p+1, n), x (..., n),
+    leading dimensions broadcast."""
+    p = (bands.shape[-2] - 1) // 2
+    out = None
+    for d in range(-p, p + 1):
+        # y[i] += B[i, i+d] x[i+d]
+        term = bands[..., d + p, :] * _shift(x, -d)
+        out = term if out is None else out + term
+    return out
+
+
+def banded_rmatvec(bands: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """B^T @ y for row-indexed band stores: bands (..., 2p+1, n), y (..., n),
+    leading dimensions broadcast."""
+    p = (bands.shape[-2] - 1) // 2
+    out = None
+    for d in range(-p, p + 1):
+        # (B^T y)[i+d] += B[i, i+d] y[i]
+        term = _shift(bands[..., d + p, :] * y, d)
+        out = term if out is None else out + term
+    return out
+
+
+def banded_btb(bands: torch.Tensor) -> torch.Tensor:
+    """Lower bands of B^T B: bands (..., 2p+1, n) -> (..., 2p+1, n) with
+    out[e, i] = (B^T B)[i+e, i], e in [0, 2p].
+
+    (B^T B)[i+e, i] = sum_d B[i-d, i] B[i-d, i+e]
+                    = sum_d bands[d+p, i-d] bands[d+e+p, i-d],
+    each product formed at row i-d and shifted by d.
+    """
+    p = (bands.shape[-2] - 1) // 2
+    n = bands.shape[-1]
+    keep = torch.arange(n, device=bands.device)
+    out = []
+    for e in range(2 * p + 1):
+        acc = torch.zeros_like(bands[..., 0, :])
+        for d in range(-p, p - e + 1):
+            acc = acc + _shift(bands[..., d + p, :] * bands[..., d + e + p, :], d)
+        # column i + e must lie in the matrix for the symmetric store
+        out.append(torch.where(keep + e < n, acc, 0.0))
+    return torch.stack(out, dim=-2)
 
 
 def sym_banded_matvec(sym_bands: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

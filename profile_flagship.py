@@ -1,16 +1,19 @@
 """Where the time of the port's flagship solves goes, on one CUDA card.
 
-    python3 profile_flagship.py [dense] [banded] [qp]
+    python3 profile_flagship.py [dense] [banded] [qp] [heterogeneous] [pcg]
 
-Builds the configurations of ``chip_smoke.py`` named (all three by
-default): "dense" — the Burgers flagship (50/256/64, float32 KKT,
+Builds the configurations of ``chip_smoke.py`` named (dense, banded and qp
+by default): "dense" — the Burgers flagship (50/256/64, float32 KKT,
 cyclic-reduction coupling solve, tol 1e-8) on dense blocks,
 ``SchurComplementSolver`` in W form (the JAX package's
 ``burgers_64blocks_cr``); "banded" — the same on band stores,
 ``BandedSchurComplementSolver`` with 128-wide tiles; "qp" — the two-stage
 stochastic QP (32 scenarios, nk 1024, float32 KKT, tol 1e-8) through the
-hybrid ``SchurComplementSolver`` (float64 pivot sweep, float32 W).  For each
-it prints, all from this one run:
+hybrid ``SchurComplementSolver`` (float64 pivot sweep, float32 W);
+"heterogeneous" — the dense flagship as two kinds
+(``HeterogeneousDynamicInterface``) with the dense solver; "pcg" — the
+JAX package's ``burgers_pcg_coupling_8blocks`` (50/32/8, float32 KKT,
+``PCGSchurComplementSolver``).  For each it prints, all from this one run:
 
 1. the card's name and power limit;
 2. the wall time of five warm solves (host clock, synchronised);
@@ -32,10 +35,11 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import FLAGSHIP, QP, TILE_SIZE, TOL, _dense_solver
+from chip_smoke import (
+    FLAGSHIP, LAUNCH_CALLS, PCG_SHAPE, QP, TILE_SIZE, TOL, _dense_solver, _pcg_solver,
+    burgers_two_kinds,
+)
 from parapint_tpu_torch.tools.kernel_lab import card_line
-
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 
 def _timed(fn):
@@ -79,6 +83,14 @@ def profile_path(path):
             block_size=128, explicit_inverse=True, factor_dtype=torch.float64,
             apply_dtype=torch.float32,
         )
+    elif path == "heterogeneous":
+        iface = burgers_two_kinds(burgers.build_spec(**FLAGSHIP), kkt_dtype=torch.float32)
+        solver = _dense_solver("cr")
+    elif path == "pcg":
+        iface = ptt.DynamicSchurComplementInteriorPointInterface(
+            burgers.build_spec(**PCG_SHAPE), kkt_dtype=torch.float32
+        )
+        solver = _pcg_solver()
     else:
         iface = ptt.DynamicSchurComplementInteriorPointInterface(
             burgers.build_spec(**FLAGSHIP), kkt_dtype=torch.float32, block_form=path
@@ -105,9 +117,13 @@ def profile_path(path):
     )] + [(solver, n) for n in ("numeric", "solve_with_status")]
     host, calls = collections.defaultdict(float), collections.Counter()
     undo = _bracket_phases(phases, host, calls)
+    if hasattr(solver, "cg_iterations"):
+        solver.cg_iterations = []
     wall, _ = _timed(lambda: solve(s0))
     undo()
     print(f"phase-synchronised solve {wall:.4f} s")
+    if hasattr(solver, "cg_iterations"):
+        print(f"CG iterations per back solve {solver.cg_iterations}")
     print(f"{'phase':28s} {'host ms (sync)':>15s} {'calls':>6s}")
     for _, name in sorted(phases, key=lambda p: -host[p[1]]):
         print(f"{name:28s} {host[name] * 1e3:15.2f} {calls[name]:6d}")

@@ -32,7 +32,8 @@ def test_package_has_sources():
         "utils/device.py", "examples/stochastic.py", "examples/dynamics.py",
         "examples/interior_point.py", "ops/read_reduce.py", "utils/profile.py",
         "tools/__init__.py", "tools/kernel_lab.py", "tools/profile_numeric.py",
-        "tools/profile_bench.py",
+        "tools/profile_bench.py", "linalg/pcg_schur.py", "linalg/condensed.py",
+        "interfaces/heterogeneous.py", "examples/performance/schur_complement.py",
     } <= names
     for source in ("ldl_panel_winv.cu", "winv_apply.cu", "read_reduce.cu"):
         assert (PKG / "csrc" / source).exists()
@@ -55,7 +56,10 @@ def test_importing_the_port_loads_no_jax():
         "parapint_tpu_torch.examples.stochastic, parapint_tpu_torch.examples.dynamics, "
         "parapint_tpu_torch.examples.interior_point, parapint_tpu_torch.ops.read_reduce, "
         "parapint_tpu_torch.utils.profile, parapint_tpu_torch.tools.kernel_lab, "
-        "parapint_tpu_torch.tools.profile_numeric, parapint_tpu_torch.tools.profile_bench; "
+        "parapint_tpu_torch.tools.profile_numeric, parapint_tpu_torch.tools.profile_bench, "
+        "parapint_tpu_torch.linalg.pcg_schur, parapint_tpu_torch.linalg.condensed, "
+        "parapint_tpu_torch.interfaces.heterogeneous, "
+        "parapint_tpu_torch.examples.performance.schur_complement; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'parapint_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
