@@ -4,9 +4,10 @@ the Burgers flagship (nfe_x=50, nfe_t=256, 64 blocks) on the dense block
 path, its solver variants, the banded path and the heterogeneous
 interface; the two-stage stochastic QP at the JAX package's
 ``stochastic_qp_32scenarios_1k`` size; the farmer; the single-NLP examples
-through ``ip_solve``; the matrix-free PCG coupling solver; and the
+through ``ip_solve``; the matrix-free PCG coupling solver; the
 condensed least-squares solver of the performance harness at the
-reference's default scale.
+reference's default scale; and the sharded (multi-rank) solvers over
+``torch.distributed``.
 
     python3 chip_smoke.py
 
@@ -93,19 +94,45 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      JAX package's; launches per numeric and back solve under
                      ``torch.profiler``; fs, ssc and csc at the CPU tests'
                      size with equal max_err (rtol 1e-6).
+16. sharded, 1 rank — one NCCL rank in this process: the dense flagship
+                     through ``ShardedSchurComplementSolver`` (W form, float32
+                     factors, cyclic reduction: ``dryrun_multichip``'s
+                     configuration) and the fused driver: optimal at the JAX
+                     objective, iterations within 1 of the JAX sharded run's,
+                     K1 == 14 x numerics, K6 == 2 x back solves; then the
+                     first KKT through the LD mode (the 2-rank reference).
+17. sharded, 2 ranks — two spawned ranks sharing the card over gloo (NCCL
+                     refuses two ranks on one device), 32 blocks each, run in
+                     turn: the dense flagship as in 16; the banded flagship
+                     through ``ShardedBandedSchurComplementSolver`` (K1 == 22
+                     x numerics per rank); 63 blocks padded to 64 with the
+                     dense coupling (K1 == 8 and K5 == 24 x numerics); the
+                     stochastic QP with each rank owning the odd or the even
+                     scenarios (``ownership_map``); the first KKT in LD mode
+                     (K2 == 8, K5 == 25, the solution within 1e-3 x max|x| of
+                     the 1-rank run's); PCG with a mesh on bench_all's 8-block
+                     row (K1 == 8 x numerics, K6 == 2 x back solves + CG
+                     iterations) and the harness's psc.  Each case is optimal
+                     at its JAX objective with iterations within 1, each rank
+                     prints its launches and all-reduce time, and the ranks'
+                     final iterates are bitwise equal.
 
 Every measurement line carries the card's name and power limit; kernel
 times are medians of CUDA-event windows (``tools/kernel_lab.py::timed_loop``).
 The lines before the last give each bytes-bound kernel's time against K7's
-measured read rate and list each kernel with launches, error, times and
-bound; the last line of standard output is the JSON result.
+measured read rate, the sharded cases' launches per rank (JSON) and list
+each kernel with launches, error, times and bound; the last line of
+standard output is the JSON result.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -253,6 +280,54 @@ CSC_JAX_THETA = (5.394658970325689, 0.45759233755419837, 7.001338872474145, 7.92
                  5.099829275933965, 5.701876365885636)
 CSC_THETA_RTOL = 1e-8
 CSC_SMALL = dict(n_blocks=4, n_q_per_block=32, n_y_multiplier=2, n_theta=5)  # tests/test_examples.py
+
+# JAX package's sharded runs on a 2-device CPU mesh (JAX_PLATFORMS=cpu), from
+# the repository root:
+#   import numpy as np, jax
+#   jax.config.update("jax_num_cpu_devices", 2)
+#   import jax.numpy as jnp, parapint_tpu as pt, bench_all
+#   from jax.sharding import Mesh
+#   from parapint_tpu.examples import burgers
+#   mesh = Mesh(np.array(jax.devices()[:2]), ("blocks",))
+#   def run(iface, solver):
+#       opts = pt.IPOptions(); opts.tol = 1e-8; opts.linalg.solver = solver
+#       status, res = pt.ip_solve_fused(iface, opts)
+#       print(status, int(res.iterations), repr(float(iface.evaluate_objective())))
+#   def burgers_iface(nfe_t, n, **kw):
+#       return pt.DynamicSchurComplementInteriorPointInterface(
+#           burgers.build_spec(nfe_x=50, nfe_t=nfe_t, num_time_blocks=n), mesh=mesh,
+#           kkt_dtype=jnp.float32, **kw)
+#   iface = burgers_iface(256, 64, block_form="banded")
+#   run(iface, pt.ShardedBandedSchurComplementSolver(mesh, "blocks", tile_size=128,
+#       schur_complement_solver=pt.BlockTridiagSolver(ns=iface.ns)))
+#   # -> optimal 6 0.04755768812300182
+#   run(burgers_iface(256, 64), pt.ShardedSchurComplementSolver(mesh, "blocks",
+#       block_size=128, explicit_inverse=True, factor_dtype=jnp.float32,
+#       schur_complement_solver=pt.BlockTridiagSolver()))
+#   # -> optimal 7 0.047557688123004524
+#   run(burgers_iface(252, 63), pt.ShardedSchurComplementSolver(mesh, "blocks",
+#       block_size=128, explicit_inverse=True, factor_dtype=jnp.float32))
+#   # -> optimal 9 0.04755730345919465 (63 blocks: another NLP)
+#   run(pt.StochasticSchurComplementInteriorPointInterface(bench_all.stochastic_qp().spec,
+#       mesh=mesh, kkt_dtype=jnp.float32, ownership_map=[i % 2 for i in range(32)]),
+#       pt.ShardedSchurComplementSolver(mesh, "blocks", block_size=128,
+#       explicit_inverse=True, factor_dtype=jnp.float64, apply_dtype=jnp.float32))
+#   # -> optimal 18 61.2056189690012
+#   run(pt.DynamicSchurComplementInteriorPointInterface(burgers.build_spec(
+#       nfe_x=50, nfe_t=32, num_time_blocks=8), mesh=mesh, kkt_dtype=jnp.float32),
+#       pt.PCGSchurComplementSolver(mesh, "blocks", block_size=128,
+#       factor_dtype=jnp.float32))
+#   # -> optimal 7 0.047561186977622474
+SHARDED_DENSE_JAX_ITERATIONS = 7
+SHARDED_BANDED_JAX_ITERATIONS = 6
+ODD = dict(nfe_x=50, nfe_t=252, num_time_blocks=63)
+ODD_JAX_OBJECTIVE, ODD_JAX_ITERATIONS = 0.04755730345919465, 9
+QP_OWN_JAX_OBJECTIVE, QP_OWN_JAX_ITERATIONS = 61.2056189690012, 18
+PCG_MESH_JAX_OBJECTIVE, PCG_MESH_JAX_ITERATIONS = 0.047561186977622474, 7
+BLOCK_PANELS_PER_NUMERIC = 8  # dense blocks: 1024 = 8 x 128, without cyclic reduction
+SHARDED_WORLD = 2
+SHARDED_TIMEOUT = 600  # seconds for the two ranks to run every case
+PG_TIMEOUT_S = 120  # a collective one rank never reaches fails after this
 
 # Panel kernels: kernel and plain version run the same float32 operations in
 # the same order per entry (each product rounded before its subtraction, no
@@ -685,6 +760,7 @@ def _counted_solve(iface, solver, label, timed=0, ref=JAX_OBJECTIVE, tol=TOL, re
             f"repeat the objective bit for bit: {counts['repeats_bitwise']}")
     if repeat and not (walls and counts["repeats_bitwise"]):
         raise AssertionError(f"{label}: a solve from the same state did not repeat bit for bit")
+    counts["counted_wall_s"], counts["wall_s"] = first, min(walls, default=None)
     return result, counts
 
 
@@ -1216,6 +1292,258 @@ def phase_condensed(device="cuda"):
     return dict(numeric_launches=n_num, solve_launches=n_sol)
 
 
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _AllReduceClock:
+    """Counts and times every ``torch.distributed.all_reduce`` while active:
+    the card is synchronised before and after each call, so the time is the
+    collective's own (for gloo: the copies to and from host memory and the
+    exchange)."""
+
+    def __init__(self):
+        self.calls, self.seconds, self.bytes = 0, 0.0, 0
+
+    @contextlib.contextmanager
+    def active(self):
+        import torch.distributed as dist
+
+        orig = dist.all_reduce
+
+        def timed(t, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(t, *args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.bytes += t.numel() * t.element_size()
+            return out
+
+        dist.all_reduce = timed
+        try:
+            yield self
+        finally:
+            dist.all_reduce = orig
+
+
+def _sharded_solve(iface, solver, label, ref, ref_iters, timed=1, tol=TOL):
+    """One counted solve (``_counted_solve``: counts zeroed before, read
+    after), ``timed`` timed ones, then one more under the all-reduce clock.
+    Returns (final primals on the CPU, counts with the walls and the
+    all-reduce time)."""
+    import parapint_tpu_torch as ptt
+
+    result, c = _counted_solve(iface, solver, label, timed=timed, ref=ref, tol=tol)
+    if abs(c["iterations"] - ref_iters) > 1:
+        raise AssertionError(f"{label}: {c['iterations']} iterations, JAX {ref_iters}")
+    opts = ptt.IPOptions()
+    opts.tol = tol
+    opts.linalg.solver = solver
+    clock = _AllReduceClock()
+    with clock.active():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ptt.make_fused_ip_solve(iface, opts)(iface.init_state())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    c.update(clocked_wall_s=wall, all_reduces=clock.calls, all_reduce_s=clock.seconds,
+             all_reduce_bytes=clock.bytes)
+    say(f"{label}: solve with every all-reduce synchronised and timed {wall:.4f} s, of it "
+        f"{clock.calls} all-reduces {clock.seconds:.4f} s ({clock.bytes} bytes)")
+    state = result.state.primals
+    return {k: v.cpu() for k, v in state.items()}, c
+
+
+def _sharded_dense_solver(mesh, coupling="cr"):
+    import parapint_tpu_torch as ptt
+
+    return ptt.ShardedSchurComplementSolver(
+        mesh, "blocks", block_size=128, explicit_inverse=True, factor_dtype=torch.float32,
+        schur_complement_solver=ptt.BlockTridiagSolver() if coupling == "cr" else None,
+    )
+
+
+def _check(label, ok, c):
+    if not ok:
+        raise AssertionError(f"{label}: launches {c}")
+
+
+def _sharded_ld(mesh, iface):
+    """The first KKT through the sharded LD mode (numeric and solve only):
+    (solution on the CPU, counts)."""
+    import parapint_tpu_torch as ptt
+
+    kkt, rhs = _first_kkt(iface)
+    solver = ptt.ShardedSchurComplementSolver(
+        mesh, "blocks", block_size=128, explicit_inverse=False, factor_dtype=torch.float32
+    )
+    _reset_counts()
+    fact = solver.numeric(kkt)
+    x, status = solver.solve_with_status(fact, rhs)
+    torch.cuda.synchronize()
+    c = _counts()
+    if int(status) != 0:
+        raise AssertionError(f"sharded LD mode: status {int(status)}")
+    return {"blocks": x.blocks.cpu(), "coupling": x.coupling.cpu()}, c
+
+
+def phase_sharded_one_rank(outdir):
+    """Phase 16: one NCCL rank in this process.  Writes the LD-mode solution
+    for the 2-rank phase to ``outdir``; returns the dense case's counts."""
+    from parapint_tpu_torch.parallel import distributed
+
+    import datetime
+
+    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                           timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    try:
+        mesh = distributed.global_mesh("blocks")
+        iface = _dense_iface()
+        _, c = _sharded_solve(iface, _sharded_dense_solver(mesh), "sharded dense flagship, 1 NCCL rank",
+                              JAX_OBJECTIVE, SHARDED_DENSE_JAX_ITERATIONS)
+        _check("sharded dense, 1 rank", c["K1"] == DENSE_K1_PER_NUMERIC * c["numerics"] > 0
+               and c["K6"] == 2 * c["solves"] > 0, c)
+        x, c_ld = _sharded_ld(mesh, iface)
+        say(f"sharded LD mode first KKT, 1 NCCL rank: launches {c_ld}")
+        _check("sharded LD mode, 1 rank", c_ld["K2"] == LD_K2_PER_NUMERIC
+               and c_ld["K5"] == SC_PANELS_PER_NUMERIC, c_ld)
+        torch.save(x, os.path.join(outdir, "ld_one_rank.pt"))
+    finally:
+        distributed.shutdown()
+    return c
+
+
+def _sharded_rank(rank, world, port, smi, outdir):
+    """Phase 17, one rank: every case in turn, its results saved to
+    ``outdir/rank{rank}.pt``."""
+    global SMI
+    SMI = f"rank {rank}/{world}, {smi}"
+    import datetime
+
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import burgers, stochastic
+    from parapint_tpu_torch.examples.performance import schur_complement as perf
+    from parapint_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo",
+                           timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    mesh = distributed.global_mesh("blocks")
+    iterates, counts = {}, {}
+
+    iface = _dense_iface()
+    iterates["dense"], c = _sharded_solve(iface, _sharded_dense_solver(mesh), "sharded dense flagship",
+                                          JAX_OBJECTIVE, SHARDED_DENSE_JAX_ITERATIONS)
+    counts["dense"] = c
+    _check("sharded dense", c["K1"] == DENSE_K1_PER_NUMERIC * c["numerics"] > 0
+           and c["K6"] == 2 * c["solves"] > 0, c)
+    x, c = _sharded_ld(mesh, iface)
+    iterates["ld"] = x
+    ref = torch.load(os.path.join(outdir, "ld_one_rank.pt"))
+    dx = max((x[k] - ref[k]).abs().max().item() for k in x)
+    scale = max(ref[k].abs().max().item() for k in ref)
+    c.update(max_dx_to_one_rank=dx, max_x=scale)
+    counts["ld"] = c
+    say(f"sharded LD mode first KKT: max|dx| to the 1-rank run {dx:.3e} (max|x| {scale:.3e}, "
+        f"tol {LD_SOLUTION_RTOL} x max|x|), launches {c}")
+    _check("sharded LD mode", c["K2"] == LD_K2_PER_NUMERIC and c["K5"] == SC_PANELS_PER_NUMERIC
+           and dx <= LD_SOLUTION_RTOL * scale, c)
+    del iface
+    torch.cuda.empty_cache()
+
+    iface = ptt.DynamicSchurComplementInteriorPointInterface(
+        burgers.build_spec(**FLAGSHIP), kkt_dtype=torch.float32, block_form="banded")
+    solver = ptt.ShardedBandedSchurComplementSolver(
+        mesh, tile_size=TILE_SIZE, schur_complement_solver=ptt.BlockTridiagSolver(ns=iface.ns))
+    iterates["banded"], c = _sharded_solve(iface, solver, "sharded banded flagship", JAX_OBJECTIVE,
+                                           SHARDED_BANDED_JAX_ITERATIONS)
+    counts["banded"] = c
+    _check("sharded banded", c["K1"] == BANDED_PANELS_PER_NUMERIC * c["numerics"] > 0, c)
+    del iface, solver
+    torch.cuda.empty_cache()
+
+    iface = ptt.DynamicSchurComplementInteriorPointInterface(
+        burgers.build_spec(**ODD), kkt_dtype=torch.float32)
+    sc_panels = -(-iface.ncv // 128)
+    iterates["odd"], c = _sharded_solve(iface, _sharded_dense_solver(mesh, "dense"),
+                                        f"sharded dense {ODD['num_time_blocks']} blocks (padded)",
+                                        ODD_JAX_OBJECTIVE, ODD_JAX_ITERATIONS)
+    counts["odd"] = c
+    _check("sharded 63 blocks", c["K1"] == BLOCK_PANELS_PER_NUMERIC * c["numerics"] > 0
+           and c["K5"] == sc_panels * c["numerics"] and c["K6"] == 2 * c["solves"], c)
+    del iface
+    torch.cuda.empty_cache()
+
+    own = [i % world for i in range(QP["n_scenarios"])]
+    iface = ptt.StochasticSchurComplementInteriorPointInterface(
+        stochastic.qp_spec(**QP), mesh=mesh, kkt_dtype=torch.float32, ownership_map=own)
+    solver = ptt.ShardedSchurComplementSolver(
+        mesh, "blocks", block_size=128, explicit_inverse=True, factor_dtype=torch.float64,
+        apply_dtype=torch.float32)
+    # the counted solve is warm here: no separately timed one
+    iterates["qp"], c = _sharded_solve(iface, solver, "sharded stochastic QP, odd/even ownership",
+                                       QP_OWN_JAX_OBJECTIVE, QP_OWN_JAX_ITERATIONS, timed=0)
+    counts["qp"] = c
+    iterates["qp"]["blocks_original_order"] = iface.get_primals()["blocks"].cpu()
+    _check("sharded QP", c["K6"] == 2 * c["solves"] > 0 and c["K5"] == c["numerics"] > 0
+           and not any(c[k] for k in ("K1", "K2", "K3", "K4")), c)
+    del iface, solver
+    torch.cuda.empty_cache()
+
+    iface = ptt.DynamicSchurComplementInteriorPointInterface(
+        burgers.build_spec(**PCG_SHAPE), kkt_dtype=torch.float32)
+    solver = ptt.PCGSchurComplementSolver(mesh, "blocks", block_size=128, factor_dtype=torch.float32)
+    iterates["pcg"], c = _sharded_solve(iface, solver, "PCG with a mesh, 8 blocks",
+                                        PCG_MESH_JAX_OBJECTIVE, PCG_MESH_JAX_ITERATIONS)
+    counts["pcg"] = c
+    _pcg_kernels_ok(c, "PCG with a mesh, 8 blocks")
+
+    psc = perf.run(method="psc", **CSC_SMALL, verbose=False)
+    ssc = perf.run(method="ssc", **CSC_SMALL, verbose=False)
+    say(f"harness psc at {CSC_SMALL} on {world} ranks: status {psc.status}, max_err {psc.max_err!r} "
+        f"(ssc {ssc.max_err!r})")
+    if psc.status != 0 or not np.isclose(psc.max_err, ssc.max_err, rtol=1e-6):
+        raise AssertionError(f"psc: status {psc.status}, max_err {psc.max_err} vs ssc {ssc.max_err}")
+    iterates["psc"] = {"theta": torch.as_tensor(psc.theta)}
+
+    torch.save({"iterates": iterates, "counts": counts}, os.path.join(outdir, f"rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def phase_sharded_two_ranks(outdir):
+    """Phase 17: spawn the ranks (the kernels are built already, so they
+    only load them), wait for both within SHARDED_TIMEOUT, and require their
+    final iterates to be bitwise equal.  Returns each rank's counts."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_sharded_rank, args=(SHARDED_WORLD, _free_port(), SMI, outdir),
+                             nprocs=SHARDED_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARDED_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"sharded ranks still running after {SHARDED_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt")) for r in range(SHARDED_WORLD)]
+    for case, state in ranks[0]["iterates"].items():
+        for key, v in state.items():
+            for r in range(1, SHARDED_WORLD):
+                if not torch.equal(v, ranks[r]["iterates"][case][key]):
+                    raise AssertionError(f"sharded {case}: rank {r}'s {key} differs from rank 0's")
+    print(f"sharded, {SHARDED_WORLD} ranks: every case passed on every rank, final iterates bitwise "
+          f"equal across the ranks; spawn to exit {wall:.1f} s [{SMI}]")
+    return [r["counts"] for r in ranks]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1247,6 +1575,11 @@ def main():
     phase_pcg_first_kkt(_dense_iface())
     torch.cuda.empty_cache()
     phase_condensed()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as outdir:
+        sharded_one = phase_sharded_one_rank(outdir)
+        torch.cuda.empty_cache()
+        sharded_two = phase_sharded_two_ranks(outdir)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     src = "parapint_tpu_torch/csrc/ldl_panel_winv.cu"
@@ -1282,6 +1615,9 @@ def main():
             "shape": list(t["shape"]),
         })
     print(f"banded flagship K1 launches {banded['K1']} for {banded['numerics']} numerics [{SMI}]")
+    # the sharded cases' counts, walls and all-reduce times per rank
+    print(json.dumps({"sharded": {"one_rank_nccl": {"dense": sharded_one},
+                                  f"{SHARDED_WORLD}_ranks_gloo": sharded_two}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

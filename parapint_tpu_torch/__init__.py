@@ -38,6 +38,8 @@ from parapint_tpu_torch.linalg import (  # noqa: E402
     LinearSolverStatus,
     PCGSchurComplementSolver,
     SchurComplementSolver,
+    ShardedBandedSchurComplementSolver,
+    ShardedSchurComplementSolver,
 )
 from parapint_tpu_torch.models import NLPModel  # noqa: E402
 from parapint_tpu_torch.interfaces import (  # noqa: E402
@@ -72,6 +74,8 @@ __all__ = [
     "DenseLDLSolver",
     "DenseLUSolver",
     "SchurComplementSolver",
+    "ShardedSchurComplementSolver",
+    "ShardedBandedSchurComplementSolver",
     "PCGSchurComplementSolver",
     "CondensedLSQKKT",
     "CondensedLSQSolver",

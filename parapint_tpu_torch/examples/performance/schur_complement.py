@@ -16,14 +16,16 @@ with border rows -P_d^T linking lam to the global theta block.  The result
 is the recovery of the planted q (``max_err``).
 
 Methods: fs = the monolithic KKT by ``DenseLDLSolver``, ssc = the batched
-``SchurComplementSolver``, csc = ``CondensedLSQSolver``, which keeps A
-banded and runs the reference's default sizes (n_q_per_block=5000,
+``SchurComplementSolver``, psc = ``ShardedSchurComplementSolver`` over the
+ranks of a block mesh, csc = ``CondensedLSQSolver``, which keeps A banded
+and runs the reference's default sizes (n_q_per_block=5000,
 n_y_multiplier=120: 605,010 variables per block) that the dense methods
-cannot hold.  The sharded method psc is not ported yet (it needs the
-multi-device solvers, ROADMAP.md).
+cannot hold (with a mesh, its back solve is split over the ranks).
 
     python -m parapint_tpu_torch.examples.performance.schur_complement \\
         --method csc --n_blocks 3 --n_q_per_block 5000 --n_y_multiplier 120
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m parapint_tpu_torch.examples.performance.schur_complement --method psc --n_blocks 4
 """
 
 import dataclasses
@@ -183,6 +185,7 @@ class Result:
 METHODS = {
     "fs": "Full Space",
     "ssc": "Serial Schur-Complement",
+    "psc": "Parallel Schur-Complement",
     "csc": "Condensed Structured SC",
 }
 
@@ -194,11 +197,12 @@ def run(
     n_y_multiplier: int = 2,
     n_theta: int = 10,
     A_nnz_per_row: int = 3,
+    mesh=None,
     block_size: int = 128,
     verbose: bool = True,
     warm: bool = False,
     device="cuda",
-) -> Result:
+) -> Optional[Result]:
     """Run one method at one size and report the phase times.
 
     ``warm=True`` runs numeric and solve a second time and times that pass
@@ -207,15 +211,30 @@ def run(
     (``torch.cuda.synchronize``) before they are read.  ``device``: the card
     by default (pass ``device="cpu"`` for a CPU run); without CUDA the
     default raises.
+
+    psc runs on every rank of an initialized process group
+    (``parallel.distributed.initialize``) over ``mesh``, by default the
+    mesh over the largest number of leading ranks that divides
+    ``n_blocks``; a rank outside the mesh takes no part and returns None.
+    csc with a ``mesh`` splits its back solve over the mesh's ranks.
     """
-    if method == "psc":
-        raise NotImplementedError(
-            "psc (the sharded Schur complement) is not ported yet: it needs the "
-            "multi-device solvers (ROADMAP.md, multi-device)"
-        )
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     device = require_device(device)
+    if method == "psc":
+        import torch.distributed as dist
+
+        from parapint_tpu_torch.parallel.mesh import largest_divisor_mesh
+
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "psc runs on the ranks of a process group: call "
+                "parapint_tpu_torch.parallel.distributed.initialize first"
+            )
+        if mesh is None:
+            mesh = largest_divisor_mesh(n_blocks)
+        if mesh.get_coordinate() is None:
+            return None
     m = SyntheticModel(
         n_blocks=n_blocks, n_q_per_block=n_q_per_block, n_y_multiplier=n_y_multiplier,
         n_theta=n_theta, A_nnz_per_row=A_nnz_per_row,
@@ -227,10 +246,13 @@ def run(
     elif method == "ssc":
         solver = ptt.SchurComplementSolver(block_size=block_size)
         kkt, rhs = m.build_kkt(device), m.build_rhs(device)
+    elif method == "psc":
+        solver = ptt.ShardedSchurComplementSolver(mesh, "blocks", block_size=block_size)
+        kkt, rhs = m.build_kkt(device), m.build_rhs(device)
     else:
         # A stays banded: y and nu are eliminated analytically and
         # G = 2 A^T A is factored by cyclic reduction
-        solver = ptt.CondensedLSQSolver(tile_size=block_size)
+        solver = ptt.CondensedLSQSolver(tile_size=block_size, mesh=mesh)
         kkt = ptt.CondensedLSQKKT(
             A_bands=torch.as_tensor(m.A_bands, dtype=F64, device=device),
             q_c=torch.zeros((n_theta, n_theta), dtype=F64, device=device),
@@ -283,7 +305,7 @@ def run(
             f"{'Back Solve (s)':<15}{'Total Time (s)':<15}"
         )
         print(
-            f"{METHODS[method]:<30}{1:<12}{n_blocks:<12}"
+            f"{METHODS[method]:<30}{1 if mesh is None else mesh.size():<12}{n_blocks:<12}"
             f"{n_q_per_block:<15}{n_y_multiplier:<15}{n_theta:<10}"
             f"{A_nnz_per_row:<15}{res.max_err:<12.3f}{res.symbolic_time:<15.3f}"
             f"{res.numeric_time:<15.3f}{res.back_solve_time:<15.3f}"
@@ -302,6 +324,11 @@ def main():
     parser.add_argument("--n_y_multiplier", type=int, default=2)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
+    if args.method == "psc":
+        # one rank per process, started by torch.distributed.run
+        from parapint_tpu_torch.parallel import distributed
+
+        distributed.initialize(device_type=torch.device(args.device).type)
     run(
         method=args.method,
         n_blocks=args.n_blocks,
@@ -309,6 +336,8 @@ def main():
         n_y_multiplier=args.n_y_multiplier,
         device=args.device,
     )
+    if args.method == "psc":
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

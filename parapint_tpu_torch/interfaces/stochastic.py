@@ -127,14 +127,21 @@ class StochasticSchurComplementInteriorPointInterface(StructuredSCInterface):
     """Interface for two-stage stochastic programs (see module docstring).
 
     ``kkt_dtype`` as for the dynamic interface; the block form is dense.
-    ``device`` defaults to the spec's and must match it.  The JAX package's
-    ``ownership_map`` (scenario -> shard) needs a device mesh, which the port
-    does not have yet: passing one raises.
+    ``device`` defaults to the spec's and must match it.
+
+    ``ownership_map``: an optional (N,) array mapping scenario -> rank along
+    ``axis_name`` of ``mesh``, for load balancing when scenarios differ in
+    cost (the reference's ``ownership_map``).  Every rank must own the same
+    number of scenarios.  The scenario axis is then stored in a stable
+    permutation that makes each rank's scenarios contiguous, so that the
+    sharded solvers' contiguous split hands each rank its own scenarios;
+    ``block_perm`` maps storage order to the original scenario index, and
+    the per-scenario accessors answer in ORIGINAL scenario order.  The mesh
+    serves only this: the iterate stays replicated on every rank.
     """
 
-    def __init__(self, spec: StochasticModelSpec, kkt_dtype=None, ownership_map=None, device=None):
-        if ownership_map is not None:
-            raise NotImplementedError("ownership_map needs a device mesh, which the port does not have yet")
+    def __init__(self, spec: StochasticModelSpec, mesh=None, axis_name: str = "blocks",
+                 kkt_dtype=None, ownership_map=None, device=None):
         device = spec.device if device is None else torch.device(device)
         if device != spec.device:
             raise ValueError(f"spec lives on {spec.device}, interface asked for {device}")
@@ -146,20 +153,32 @@ class StochasticSchurComplementInteriorPointInterface(StructuredSCInterface):
         self.ncv = L
         self.n_link = L
 
+        perm = _storage_order(N, ownership_map, mesh, axis_name)
+        self.block_perm = perm  # storage order -> original scenario index
+        self._inv_perm = np.argsort(perm)
+        self._perm_is_identity = bool(np.array_equal(perm, np.arange(N)))
+        perm_t = torch.as_tensor(perm, device=device)
+
+        def _p(a):
+            """The leading (scenario) axis in storage order."""
+            if a is None or self._perm_is_identity:
+                return a
+            return a[perm_t] if isinstance(a, torch.Tensor) else np.asarray(a)[perm]
+
         self.fns = BatchedNLPFunctions(
             spec.objective, spec.eq_constraints, spec.ineq_constraints, n, me, mi
         )
-        self.params = spec.params
-        as_b = lambda a: torch.as_tensor(a, dtype=torch.bool, device=device)
+        self.params = {k: _p(v) for k, v in spec.params.items()}
+        as_b = lambda a: torch.as_tensor(_p(a), dtype=torch.bool, device=device)
         self.eq_mask = as_b(spec.eq_mask)
         self.ineq_mask = as_b(spec.ineq_mask)
         self.x_mask = as_b(spec.x_mask)
-        self._xl, self._xu = spec.xl, spec.xu
-        self._gl, self._gu = spec.gl, spec.gu
-        self.x0 = spec.x0
+        self._xl, self._xu = _p(spec.xl), _p(spec.xu)
+        self._gl, self._gu = _p(spec.gl), _p(spec.gu)
+        self.x0 = _p(spec.x0)
         self._warm_start = dict(
-            y_eq0=spec.y_eq0, y_ineq0=spec.y_ineq0, zl0=spec.zl0,
-            zu0=spec.zu0, lam0=spec.lam0, c0=spec.c0,
+            y_eq0=_p(spec.y_eq0), y_ineq0=_p(spec.y_ineq0), zl0=_p(spec.zl0),
+            zu0=_p(spec.zu0), lam0=_p(spec.lam0), c0=spec.c0,
         )
 
         # every scenario's link row j selects x[first_stage_idx[j]] and
@@ -170,10 +189,48 @@ class StochasticSchurComplementInteriorPointInterface(StructuredSCInterface):
         self.sc_assembly = "shared"
         self._finalize(kkt_dtype=kkt_dtype)
 
+    # -- per-scenario accessors, in ORIGINAL scenario order ---------------------
+
+    def _deperm(self, a):
+        """A leading (scenario-storage) axis back in ORIGINAL order."""
+        if self._perm_is_identity:
+            return a
+        return a[torch.as_tensor(self._inv_perm, device=a.device)]
+
+    def get_block_primals(self, ndx: int):
+        """Primals of ORIGINAL scenario ``ndx``."""
+        return self._current_state.primals["blocks"][int(self._inv_perm[ndx])]
+
+    def get_primals(self):
+        p = self._current_state.primals
+        return {"blocks": self._deperm(p["blocks"]), "coupling": p["coupling"]}
+
     def get_first_stage_values(self):
         """Consensus first-stage variable values (the coupling variables)."""
         return self._current_state.primals["coupling"]
 
     def get_duals_nonanticipativity(self):
-        """(N, L) nonanticipativity duals."""
-        return self._current_state.duals_eq["link"]
+        """(N, L) nonanticipativity duals, in ORIGINAL scenario order."""
+        return self._deperm(self._current_state.duals_eq["link"])
+
+
+def _storage_order(N: int, ownership_map, mesh, axis_name: str) -> np.ndarray:
+    """The scenario storage order: identity without an ownership map, else
+    the stable sort of the scenarios by their rank."""
+    if ownership_map is None:
+        return np.arange(N)
+    if mesh is None:
+        raise ValueError("ownership_map requires mesh")
+    own = np.asarray(ownership_map, dtype=np.int64)
+    if own.shape != (N,):
+        raise ValueError(f"ownership_map must be ({N},), got {own.shape}")
+    n_shards = mesh.shape[mesh.mesh_dim_names.index(axis_name)]
+    if own.min() < 0 or own.max() >= n_shards:
+        raise ValueError(f"ownership_map entries must be in [0, {n_shards})")
+    counts = np.bincount(own, minlength=n_shards)
+    if N % n_shards or not np.all(counts == N // n_shards):
+        raise ValueError(
+            "ownership_map must assign the same number of scenarios "
+            f"to every shard (got counts {counts.tolist()})"
+        )
+    return np.argsort(own, kind="stable")

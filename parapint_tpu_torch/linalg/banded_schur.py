@@ -1,5 +1,7 @@
-"""Schur-complement solver with BANDED per-block factorization (counterpart
-of the serial ``parapint_tpu.linalg.banded_schur.BandedSchurComplementSolver``).
+"""Schur-complement solvers with BANDED per-block factorization (counterpart
+of ``parapint_tpu.linalg.banded_schur``: the serial
+``BandedSchurComplementSolver`` and, over ``torch.distributed`` ranks,
+``ShardedBandedSchurComplementSolver``).
 
 Under the host-computed bandwidth-reducing, constraint-after-its-variables
 ordering (``interfaces/banded_symbolic.py``) each per-block KKT is banded with
@@ -9,7 +11,9 @@ Inertia is exact by Haynsworth additivity over the tile Schur complements.
 The coupling system is formed from V = K^{-1} A^T and, for the time-chain
 topology, factored by cyclic reduction (``linalg/tridiag.py``).  Solves fold
 the second Thomas sweep into one GEMM against V and refine adaptively in the
-working precision.
+working precision.  The sharded solver runs the Thomas sweep of each rank's
+own blocks and all-reduces what couples them, as the dense sharded solver
+(``linalg/sharded_schur.py``) does.
 """
 
 import dataclasses
@@ -17,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from parapint_tpu_torch.linalg.base import LinearSolver
 from parapint_tpu_torch.linalg.dense import DenseLDLSolver
@@ -34,14 +39,11 @@ from parapint_tpu_torch.linalg.schur import (
     _chain_border_ok,
     _chain_tiles,
     _factor_blocks_winv,
+    _tile_sc,
 )
-from parapint_tpu_torch.linalg.tridiag import (
-    BlockTridiag,
-    BlockTridiagSolver,
-    _winv_to_inverse,
-    extract_tridiag,
-)
+from parapint_tpu_torch.linalg.tridiag import BlockTridiagSolver, _winv_to_inverse
 from parapint_tpu_torch.ops.banded import pad_sym_band, sym_band_to_tridiag_tiles
+from parapint_tpu_torch.parallel.mesh import BlockAxis, all_reduce_max, all_reduce_sum
 
 # panel width of the tile factorizations (a 128-wide tile is two panels)
 TILE_BLOCK_SIZE = 64
@@ -164,6 +166,9 @@ class BandedSchurFactor:
     upper_t: torch.Tensor  # (N, m-1, ts, ts)
     v_border: torch.Tensor  # (N, nk, L) V = K^{-1} A^T
     norm2: torch.Tensor  # ||K||_F^2 of the full block-bordered system
+    # first global block of these blocks (a sharded solver's rank holds its
+    # own blocks only)
+    group_offset: int = 0
 
 
 def tridiag_tiles_matvec(diag_t, upper_t, x):
@@ -205,6 +210,10 @@ class BandedSchurComplementSolver(LinearSolver):
     factorizations.
     """
 
+    # process group over which a sharded solver sums the coupling parts of
+    # its solves and refinement probes (None: serial)
+    group = None
+
     def __init__(
         self,
         schur_complement_solver: Optional[LinearSolver] = None,
@@ -240,56 +249,72 @@ class BandedSchurComplementSolver(LinearSolver):
         nc = kkt.q.shape[-1]
         return ns > 0 and nc > 0 and nc % ns == 0
 
-    def numeric(self, kkt: BandedLocalBlockKKT) -> BandedSchurFactor:
+    def _check_device(self, kkt: BandedLocalBlockKKT):
         dev = kkt.sym_bands.device
         if self.device is not None and (
             dev.type != self.device.type
             or self.device.index not in (None, dev.index)
         ):
             raise ValueError(f"KKT on {dev}, solver built for {self.device}")
+
+    def numeric(self, kkt: BandedLocalBlockKKT) -> BandedSchurFactor:
+        self._check_device(kkt)
         self.n_numeric += 1
-        N, pp1, nk = kkt.sym_bands.shape
+        return self._numeric(kkt, 0, kkt.sym_bands.shape[0])
+
+    def _numeric(self, kkt: BandedLocalBlockKKT, lo: int, hi: int) -> BandedSchurFactor:
+        """Factor the blocks [lo, hi) of ``kkt``; what couples them to the
+        other blocks is summed over the solver's group."""
+        nk = kkt.sym_bands.shape[-1]
         nc = kkt.q.shape[-1]
         ns = kkt.border_loc.shape[1] // 2
-        diag_t, upper_t, ts, nk_pad = banded_tiles(kkt.sym_bands, self.tile_size)
-        thomas = thomas_factor_batched(diag_t, upper_t, kkt.mask)
-        # V = K^{-1} A^T over the L border columns (multi-RHS sweep)
-        A = kkt.border_loc
-        L = A.shape[1]
-        At = A.transpose(1, 2).to(diag_t.dtype)  # (N, nk, L)
-        if nk_pad != nk:
-            At = torch.nn.functional.pad(At, (0, 0, 0, nk_pad - nk))
-        V = thomas_solve_batched(thomas, At.reshape(N, nk_pad // ts, ts, L))
-        V = V.reshape(N, nk_pad, L)[:, :nk]
-        S_loc = A.to(V.dtype) @ V
-        S_loc = S_loc * kkt.mask[:, None, None].to(V.dtype)
-        if self._use_tridiag_sc(kkt):
-            dt_c, ut_full = _chain_tiles(S_loc, nc)
-            q_tri = extract_tridiag(kkt.q.to(V.dtype), ns)
-            sc = BlockTridiag(diag=q_tri.diag - dt_c, upper=q_tri.upper - ut_full[:-1])
-        else:
-            sc = kkt.q.to(V.dtype) - _assemble_sc(S_loc, kkt.row_idx, nc, kkt.assembly)
-        sc_fact = self.sc_solver.numeric(sc)
+        mask = kkt.mask[lo:hi]
+        A = kkt.border_loc[lo:hi]
+        row_idx = kkt.row_idx[lo:hi]
+        N, L = A.shape[:2]
+        with record_function("banded_sc.factor_blocks"):
+            diag_t, upper_t, ts, nk_pad = banded_tiles(kkt.sym_bands[lo:hi], self.tile_size)
+            thomas = thomas_factor_batched(diag_t, upper_t, mask)
+        with record_function("banded_sc.form_sc"):
+            # V = K^{-1} A^T over the L border columns (multi-RHS sweep)
+            At = A.transpose(1, 2).to(diag_t.dtype)  # (N, nk, L)
+            if nk_pad != nk:
+                At = torch.nn.functional.pad(At, (0, 0, 0, nk_pad - nk))
+            V = thomas_solve_batched(thomas, At.reshape(N, nk_pad // ts, ts, L))
+            V = V.reshape(N, nk_pad, L)[:, :nk]
+            S_loc = A.to(V.dtype) @ V
+            S_loc = S_loc * mask[:, None, None].to(V.dtype)
         f32 = torch.float32
-        norm2 = (
-            diag_t.to(f32).square().sum()
-            + 2.0 * upper_t.to(f32).square().sum()
-            + 2.0 * kkt.border_loc.to(f32).square().sum()
-            + kkt.q.to(f32).square().sum()
-        )
+        with record_function("banded_sc.communicate"):
+            q = kkt.q.to(V.dtype)
+            if self._use_tridiag_sc(kkt):
+                dt_c, ut_full = _chain_tiles(S_loc, nc, lo)
+                sc = _tile_sc(q, ns, dt_c, ut_full, self.group)
+            else:
+                sc = q - all_reduce_sum(_assemble_sc(S_loc, row_idx, nc, kkt.assembly, lo), self.group)
+            norm2 = all_reduce_sum(
+                diag_t.to(f32).square().sum()
+                + 2.0 * upper_t.to(f32).square().sum()
+                + 2.0 * A.to(f32).square().sum(),
+                self.group,
+            ) + kkt.q.to(f32).square().sum()
+            blk_inertia = all_reduce_sum(thomas.inertia, self.group)
+            blk_status = all_reduce_max(thomas.status, self.group)
+        with record_function("banded_sc.factor_sc"):
+            sc_fact = self.sc_solver.numeric(sc)
         sc_pos, sc_neg, sc_zero = self.sc_solver.inertia(sc_fact)
         # identity padding rows contribute +1 pivots each
         pad_pos = (nk_pad - nk) * kkt.mask.sum().to(torch.int32)
-        inertia = thomas.inertia + torch.stack([sc_pos, sc_neg, sc_zero]).to(torch.int32)
+        inertia = blk_inertia + torch.stack([sc_pos, sc_neg, sc_zero]).to(torch.int32)
         inertia = inertia - torch.stack(
             [pad_pos, torch.zeros_like(pad_pos), torch.zeros_like(pad_pos)]
         ).to(torch.int32)
-        status = torch.maximum(thomas.status, self.sc_solver.status(sc_fact))
+        status = torch.maximum(blk_status, self.sc_solver.status(sc_fact))
         return BandedSchurFactor(
             thomas=thomas,
             q=kkt.q,
-            border_loc=kkt.border_loc,
-            row_idx=kkt.row_idx,
+            border_loc=A,
+            row_idx=row_idx,
             perm=kkt.perm,
             iperm=kkt.iperm,
             sc_fact=sc_fact,
@@ -303,6 +328,7 @@ class BandedSchurComplementSolver(LinearSolver):
             upper_t=upper_t,
             v_border=V,
             norm2=norm2,
+            group_offset=lo,
         )
 
     # -- solves -------------------------------------------------------------
@@ -321,13 +347,13 @@ class BandedSchurComplementSolver(LinearSolver):
     def _solve_once(self, fact: BandedSchurFactor, rhs: BlockRhs) -> BlockRhs:
         """One SC solve in PERMUTED block coordinates."""
         chain = _chain_border_ok(fact.assembly, fact.border_loc, fact.nc)
+        off = fact.group_offset
         v = self._apply_blocks(fact, rhs.blocks)
         if chain:
-            sc_rhs = rhs.coupling - _border_apply_chain(fact.border_loc, v, fact.nc)
+            contrib = _border_apply_chain(fact.border_loc, v, fact.nc, off)
         else:
-            sc_rhs = rhs.coupling - _border_apply_local(
-                fact.border_loc, fact.row_idx, v, fact.nc, fact.assembly
-            )
+            contrib = _border_apply_local(fact.border_loc, fact.row_idx, v, fact.nc, fact.assembly)
+        sc_rhs = rhs.coupling - all_reduce_sum(contrib, self.group)
         # coupling solve at the factor precision; the refinement loop owns
         # the working-precision accuracy
         fdt = fact.thomas.tinv.dtype
@@ -336,14 +362,15 @@ class BandedSchurComplementSolver(LinearSolver):
         Nb, L = fact.border_loc.shape[:2]
         yv = y.to(fact.v_border.dtype)
         if chain:
-            y_loc = _border_y_loc_chain(yv, Nb, L)
+            y_loc = _border_y_loc_chain(yv, Nb, L, off)
         else:
             y_loc = torch.cat([yv, yv.new_zeros(1)])[fact.row_idx.long()]
         x = v - (fact.v_border @ y_loc[:, :, None])[..., 0].to(v.dtype)
         return BlockRhs(blocks=x, coupling=y)
 
     def _kkt_matvec(self, fact: BandedSchurFactor, x: BlockRhs, dtype=None) -> BlockRhs:
-        """K @ x (permuted block coordinates) for iterative refinement."""
+        """K @ x (permuted block coordinates) for iterative refinement; the
+        coupling part is summed over the solver's group."""
         q = fact.q
         xb, xc = x.blocks, x.coupling
         border_loc = fact.border_loc
@@ -357,28 +384,32 @@ class BandedSchurComplementSolver(LinearSolver):
             fact.diag_t, fact.upper_t, xp.reshape(N, nk_pad // ts, ts)
         ).reshape(N, nk_pad)[:, :nk]
         if _chain_border_ok(fact.assembly, border_loc, fact.nc):
-            bx = bx + _border_T_apply_chain(border_loc, xc)
-            cy = _border_apply_chain(border_loc, xb, fact.nc)
+            bx = bx + _border_T_apply_chain(border_loc, xc, fact.group_offset)
+            cy = _border_apply_chain(border_loc, xb, fact.nc, fact.group_offset)
         else:
             bx = bx + _border_T_apply_local(border_loc, fact.row_idx, xc)
             cy = _border_apply_local(border_loc, fact.row_idx, xb, fact.nc, fact.assembly)
+        cy = all_reduce_sum(cy, self.group)
         cy = cy + (q.to(cy.dtype) @ xc.to(cy.dtype))
         return BlockRhs(blocks=bx, coupling=cy)
 
     def _refine_probe(self, fact, rhs, x, trigger) -> torch.Tensor:
         """Device bool: does the f32 residual of ``x`` still exceed
         max(trigger * ||rhs||, noise floor)?  The floor is
-        (32 eps_f32)^2 ||K||_F^2 ||x||^2 (norm bound of |K||x|)."""
+        (32 eps_f32)^2 ||K||_F^2 ||x||^2 (norm bound of |K||x|).  The block
+        norms are summed over the solver's group, the coupling part (the
+        same on every rank) added once."""
         f32 = torch.float32
         kx = self._kkt_matvec(fact, x, dtype=f32)
         wd = rhs.blocks.dtype
         rb = rhs.blocks.to(f32).to(wd) - kx.blocks.to(wd)
         rc = rhs.coupling.to(f32).to(wd) - kx.coupling.to(wd)
-        rn2 = (rb * rb).sum() + (rc * rc).sum()
-        bn2 = rhs.blocks.to(wd).square().sum() + rhs.coupling.to(wd).square().sum()
-        fn2 = fact.norm2.to(wd) * (
-            x.blocks.to(wd).square().sum() + x.coupling.to(wd).square().sum()
-        )
+        rb2, bb2, xb2 = all_reduce_sum(torch.stack([
+            (rb * rb).sum(), rhs.blocks.to(wd).square().sum(), x.blocks.to(wd).square().sum(),
+        ]), self.group)
+        rn2 = rb2 + (rc * rc).sum()
+        bn2 = bb2 + rhs.coupling.to(wd).square().sum()
+        fn2 = fact.norm2.to(wd) * (xb2 + x.coupling.to(wd).square().sum())
         eps = 32.0 * float(np.finfo(np.float32).eps)
         floor2 = (eps * eps) * fn2
         thresh = torch.maximum((trigger * trigger) * torch.clamp(bn2, min=1.0), floor2)
@@ -387,6 +418,12 @@ class BandedSchurComplementSolver(LinearSolver):
     def _solve_refined(self, fact: BandedSchurFactor, rhs: BlockRhs):
         # permute the rhs blocks into the banded ordering once (plain gather)
         rp = BlockRhs(blocks=rhs.blocks[:, fact.perm], coupling=rhs.coupling)
+        x, ok = self._refine(fact, rp)
+        return BlockRhs(blocks=x.blocks[:, fact.iperm], coupling=x.coupling), ok
+
+    def _refine(self, fact: BandedSchurFactor, rp: BlockRhs):
+        """(solution, refined_ok) in PERMUTED block coordinates: one solve,
+        then adaptive refinement."""
 
         def up(b: BlockRhs) -> BlockRhs:
             return BlockRhs(
@@ -408,7 +445,7 @@ class BandedSchurComplementSolver(LinearSolver):
             x = refine_pass(x)
             passes += 1
             need = self._refine_probe(fact, rp, x, REFINE_TRIGGER)
-        return BlockRhs(blocks=x.blocks[:, fact.iperm], coupling=x.coupling), ~need
+        return x, ~need
 
     def solve(self, fact: BandedSchurFactor, rhs: BlockRhs) -> BlockRhs:
         return self._solve_refined(fact, rhs)[0]
@@ -425,3 +462,60 @@ class BandedSchurComplementSolver(LinearSolver):
 
     def status(self, fact: BandedSchurFactor) -> torch.Tensor:
         return fact.status
+
+
+def pad_banded_block_count(kkt: BandedLocalBlockKKT, multiple: int) -> BandedLocalBlockKKT:
+    """Pad a BandedLocalBlockKKT to a multiple of ``multiple`` blocks with
+    masked identity blocks (band 0 = 1, zero borders, local rows at the dump
+    index); a chain assembly falls back to scatter, as in
+    :func:`~parapint_tpu_torch.linalg.schur.pad_block_count`."""
+    N, pp1, nk = kkt.sym_bands.shape
+    rem = (-N) % multiple
+    if rem == 0:
+        return kkt
+    pad = kkt.sym_bands.new_zeros((rem, pp1, nk))
+    pad[:, 0, :] = 1.0
+    L = kkt.border_loc.shape[1]
+    nc = kkt.q.shape[-1]
+    return dataclasses.replace(
+        kkt,
+        sym_bands=torch.cat([kkt.sym_bands, pad]),
+        border_loc=torch.cat([kkt.border_loc, kkt.border_loc.new_zeros((rem, L, nk))]),
+        row_idx=torch.cat([kkt.row_idx, kkt.row_idx.new_full((rem, L), nc)]),
+        mask=torch.cat([kkt.mask, kkt.mask.new_zeros(rem)]),
+        assembly="scatter" if kkt.assembly == "chain" else kkt.assembly,
+    )
+
+
+class ShardedBandedSchurComplementSolver(BandedSchurComplementSolver):
+    """Banded per-block factorization with the block axis sharded over the
+    ranks of a mesh axis: each rank runs the block-Thomas sweep of its own
+    contiguous blocks of the KKT padded to a multiple of the rank count
+    (:func:`pad_banded_block_count`), the Schur complement is all-reduced
+    (in tile form for the time chain with ``BlockTridiagSolver``) and
+    factored on every rank, and ``solve`` returns the full solution on
+    every rank.  Keywords as for :class:`BandedSchurComplementSolver`; the
+    counts are this rank's.
+    """
+
+    def __init__(self, mesh, axis_name: str = "blocks", **kw):
+        super().__init__(**kw)
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.axis = BlockAxis.of(mesh, axis_name)
+        self.group = self.axis.group
+        self.n_shards = self.axis.size
+
+    def numeric(self, kkt: BandedLocalBlockKKT) -> BandedSchurFactor:
+        self._check_device(kkt)
+        self.n_numeric += 1
+        kkt = pad_banded_block_count(kkt, self.n_shards)
+        return self._numeric(kkt, *self.axis.local_range(kkt.sym_bands.shape[0]))
+
+    def _solve_refined(self, fact: BandedSchurFactor, rhs: BlockRhs):
+        nb = fact.v_border.shape[0] * self.n_shards
+        rp = self.axis.local_rows(rhs.blocks[:, fact.perm], nb)
+        x, ok = self._refine(fact, BlockRhs(blocks=rp, coupling=rhs.coupling))
+        with record_function("banded_sc.communicate"):
+            xb = self.axis.gather_blocks(x.blocks, nb)[: rhs.blocks.shape[0]]
+        return BlockRhs(blocks=xb[:, fact.iperm], coupling=x.coupling), ok

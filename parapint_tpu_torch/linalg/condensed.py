@@ -49,6 +49,7 @@ from parapint_tpu_torch.ops.banded import (
     pad_sym_band,
     sym_band_to_tridiag_tiles,
 )
+from parapint_tpu_torch.parallel.mesh import BlockAxis
 
 # panel width of the dense S_lam / S_theta factors and the largest panel
 # width of the cyclic-reduction levels
@@ -115,11 +116,18 @@ class CondensedFactor:
 class CondensedLSQSolver(LinearSolver):
     """LinearSolver over :class:`CondensedLSQKKT`: the whole
     block-bordered solve (blocks and coupling) in one pipeline.
-    ``n_numeric`` counts numeric factorizations, ``n_solves`` back solves."""
+    ``n_numeric`` counts numeric factorizations, ``n_solves`` back solves.
 
-    def __init__(self, tile_size: int = 128):
+    With a ``mesh`` (1-D ``DeviceMesh`` holding this rank) the back solve
+    splits the blocks over the ranks of ``axis_name``: each rank solves its
+    own contiguous blocks (the count padded with zero right-hand sides) and
+    one all-reduce of n_t numbers sums the coupling rhs.  The factorization
+    does not depend on the block count and runs on every rank."""
+
+    def __init__(self, tile_size: int = 128, mesh=None, axis_name: str = "blocks"):
         self.tile_size = tile_size
         self._dense = DenseLDLSolver(block_size=DENSE_BLOCK_SIZE)
+        self.axis = None if mesh is None else BlockAxis.of(mesh, axis_name)
         self.n_numeric = 0
         self.n_solves = 0
 
@@ -203,12 +211,20 @@ class CondensedLSQSolver(LinearSolver):
         if kkt is None:
             raise ValueError("CondensedLSQSolver.solve needs kkt=")
         self.n_solves += 1
-        zero_t = rhs.blocks.new_zeros(kkt.n_t)
-        v = self._block_solve(kkt, fact, rhs.blocks, zero_t)
+        blocks = rhs.blocks
+        N = blocks.shape[0]
+        if self.axis is not None:
+            nb = -(-N // self.axis.size) * self.axis.size
+            blocks = self.axis.local_rows(blocks, nb)
+        zero_t = blocks.new_zeros(kkt.n_t)
+        v = self._block_solve(kkt, fact, blocks, zero_t)
         # sc_rhs = b_theta - sum_i A_i v_i = b_theta + sum_i v_i[lam]
-        sc_rhs = rhs.coupling + v[:, kkt.off_lam :].sum(0)
+        sc_local = v[:, kkt.off_lam :].sum(0)
+        sc_rhs = rhs.coupling + (sc_local if self.axis is None else self.axis.sum(sc_local))
         theta = self._dense.solve(fact.s_theta_fact, sc_rhs)
-        x = self._block_solve(kkt, fact, rhs.blocks, theta)
+        x = self._block_solve(kkt, fact, blocks, theta)
+        if self.axis is not None:
+            x = self.axis.gather_blocks(x, nb)[:N]
         return BlockRhs(blocks=x, coupling=theta)
 
     def inertia(self, fact: CondensedFactor):

@@ -1,6 +1,5 @@
 """Matrix-free Schur-complement solver: preconditioned conjugate gradients
-on the coupling system (counterpart of ``parapint_tpu.linalg.pcg_schur``,
-serial).
+on the coupling system (counterpart of ``parapint_tpu.linalg.pcg_schur``).
 
 The solver never forms S; it runs Jacobi-preconditioned CG on
 
@@ -22,6 +21,12 @@ negative curvature, which sets the error status of the solve.
 CG is a host loop with one flag read per iteration, the JAX package's
 ``while_loop`` with its stopping rule: ||r|| <= CG_TOL (1 + ||rhs||), at
 most CG_MAXITER iterations, stopped early by nonpositive curvature.
+
+With a mesh, each rank factors its own contiguous blocks of the KKT padded
+to a multiple of the rank count, and the Jacobi diagonal, the inertia, the
+status and the coupling part of each S matvec (one per CG iteration) are
+all-reduced over the mesh's process group; the CG vectors are the same on
+every rank.
 """
 
 import dataclasses
@@ -38,8 +43,11 @@ from parapint_tpu_torch.linalg.schur import (
     _factor_blocks_winv,
     _winv_apply_batched,
     _winv_multi,
+    block_range,
+    pad_block_count,
 )
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_rows
+from parapint_tpu_torch.parallel.mesh import BlockAxis, all_reduce_max, all_reduce_sum
 
 # CG stopping rule (the JAX package's defaults; no caller sets others)
 CG_TOL = 1e-12
@@ -70,10 +78,15 @@ class PCGSchurComplementSolver(LinearSolver):
     the ``ldl_panels_slab_winv`` kernel entry).  ``n_numeric`` counts
     numeric factorizations, ``n_solves`` back solves (two block applies
     each, plus one per CG iteration) and ``cg_iterations`` lists the CG
-    iterations of each back solve.
+    iterations of each back solve.  ``mesh`` (a 1-D ``DeviceMesh`` holding
+    this rank) splits the blocks over the ranks of ``axis_name``; the counts
+    are then this rank's.
     """
 
-    def __init__(self, block_size: int = 128, factor_dtype=None):
+    def __init__(self, mesh=None, axis_name: str = "blocks", block_size: int = 128,
+                 factor_dtype=None):
+        self.axis = None if mesh is None else BlockAxis.of(mesh, axis_name)
+        self.group = None if mesh is None else self.axis.group
         self.block_size = block_size
         self.factor_dtype = factor_dtype
         self.n_numeric = 0
@@ -88,6 +101,10 @@ class PCGSchurComplementSolver(LinearSolver):
     def numeric(self, kkt: LocalBlockKKT) -> PCGSchurFactor:
         self.n_numeric += 1
         nc = kkt.q.shape[-1]
+        if self.axis is not None:
+            # any block count: masked identity blocks pad it
+            kkt = pad_block_count(kkt, self.axis.size)
+            kkt = block_range(kkt, *self.axis.local_range(kkt.diag.shape[0]))
         W, d, s, inertia, status = _factor_blocks_winv(
             kkt.diag, kkt.mask, self.block_size, self.factor_dtype
         )
@@ -95,7 +112,9 @@ class PCGSchurComplementSolver(LinearSolver):
         # local contributions summed onto their coupling rows
         S_loc = _winv_multi(W, d, s, kkt.border_loc.transpose(1, 2))
         diag_contrib = torch.diagonal(S_loc, dim1=1, dim2=2)
-        dS = scatter_add_rows(kkt.row_idx, -diag_contrib, nc)
+        dS = all_reduce_sum(scatter_add_rows(kkt.row_idx, -diag_contrib, nc), self.group)
+        inertia = all_reduce_sum(inertia, self.group)
+        status = all_reduce_max(status, self.group)
         dS = dS + torch.diagonal(kkt.q).to(dS.dtype)
         precond = torch.where(dS.abs() > 0, 1.0 / dS, torch.ones_like(dS))
         # the SC is SPD given the blocks' inertia (module docstring)
@@ -119,7 +138,7 @@ class PCGSchurComplementSolver(LinearSolver):
         ay = _border_T_apply_local(fact.border_loc, fact.row_idx, y)
         v = _winv_apply_batched(fact.block_W, fact.block_d, fact.block_s, ay)
         contrib = _border_apply_local(fact.border_loc, fact.row_idx, v, fact.nc)
-        return fact.q.to(y.dtype) @ y - contrib
+        return fact.q.to(y.dtype) @ y - all_reduce_sum(contrib, self.group)
 
     def _cg(self, fact: PCGSchurFactor, rhs):
         """Jacobi-PCG; returns (y, converged, neg_curvature, iterations) with
@@ -155,12 +174,19 @@ class PCGSchurComplementSolver(LinearSolver):
         ``error``."""
         self.n_solves += 1
         blocks = rhs.blocks
+        if self.axis is not None:
+            # this rank's rows of the rhs padded like the factor
+            nb = fact.block_W.shape[0] * self.axis.size
+            blocks = self.axis.local_rows(blocks, nb)
         v = _winv_apply_batched(fact.block_W, fact.block_d, fact.block_s, blocks).to(blocks.dtype)
-        sc_rhs = rhs.coupling - _border_apply_local(fact.border_loc, fact.row_idx, v, fact.nc)
+        contrib = _border_apply_local(fact.border_loc, fact.row_idx, v, fact.nc)
+        sc_rhs = rhs.coupling - all_reduce_sum(contrib, self.group)
         y, converged, neg, it = self._cg(fact, sc_rhs)
         self.cg_iterations.append(it)
         rhs2 = blocks - _border_T_apply_local(fact.border_loc, fact.row_idx, y)
         x = _winv_apply_batched(fact.block_W, fact.block_d, fact.block_s, rhs2).to(blocks.dtype)
+        if self.axis is not None:
+            x = self.axis.gather_blocks(x, nb)[: rhs.blocks.shape[0]]
         solve_status = torch.where(
             neg,
             int(LinearSolverStatus.singular),

@@ -47,6 +47,7 @@ from parapint_tpu_torch.ops.ldl import (
 )
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_pairs, scatter_add_rows
 from parapint_tpu_torch.ops.winv_apply import winv_apply_fused, winv_apply_plain
+from parapint_tpu_torch.parallel.mesh import all_reduce_sum
 
 # adaptive refinement: passes run while the float32 residual exceeds
 # REFINE_TRIGGER * ||rhs|| (and the probe's noise floor), at most
@@ -129,6 +130,9 @@ class SchurFactor:
     # full-precision W kept beside a reduced-storage block_W when the bf16
     # auto-gate is on: a stalled adaptive refinement retries with it
     block_W_hi: Optional[torch.Tensor] = None
+    # first global block (= coupling group) of these blocks: nonzero on the
+    # ranks of a sharded solver, whose factor holds their own blocks only
+    group_offset: int = 0
 
 
 def pad_block_count(kkt, multiple: int):
@@ -159,6 +163,17 @@ def pad_block_count(kkt, multiple: int):
         )
     border = torch.cat([kkt.border, kkt.border.new_zeros((rem, nc, nk))])
     return BlockKKT(diag=diag, border=border, q=kkt.q, mask=mask)
+
+
+def block_range(kkt, lo: int, hi: int):
+    """The blocks [lo, hi) of a Block/LocalBlockKKT (q is shared): one
+    rank's part of the KKT of a sharded solver."""
+    if isinstance(kkt, LocalBlockKKT):
+        return dataclasses.replace(
+            kkt, diag=kkt.diag[lo:hi], border_loc=kkt.border_loc[lo:hi],
+            row_idx=kkt.row_idx[lo:hi], mask=kkt.mask[lo:hi],
+        )
+    return dataclasses.replace(kkt, diag=kkt.diag[lo:hi], border=kkt.border[lo:hi], mask=kkt.mask[lo:hi])
 
 
 def _inertia_status(d: torch.Tensor, nk: int, mask: torch.Tensor):
@@ -265,12 +280,13 @@ def _scatter_sc(S_loc, row_idx, nc: int):
     return scatter_add_pairs(row_idx, S_loc, nc)
 
 
-def _chain_tiles(S_loc, nc: int):
+def _chain_tiles(S_loc, nc: int, group_offset: int = 0):
     """Chain-topology SC contribution in block-tridiagonal tile form:
     ``(diag_tiles (ng, ns, ns), upper_full (ng, ns, ns))`` with
     ``upper_full[g]`` the (c_g, c_{g+1}) tile (index ng-1 is structurally
     unused and dropped by consumers).  Block b's quadrants [bwd | fwd] land
-    on groups b-1 and b; out-of-range quadrants (block 0 backward, last block
+    on groups b-1 and b, b counted from ``group_offset`` (a rank's first
+    global block); out-of-range quadrants (block 0 backward, last block
     forward) are dropped — their border rows are zero by the link masks."""
     Nb, L, _ = S_loc.shape
     ns = L // 2
@@ -287,12 +303,24 @@ def _chain_tiles(S_loc, nc: int):
             out[lo:hi] = tiles[lo - start : hi - start]
         return out
 
-    diag_tiles = place(ff, 0) + place(bb, -1)
-    upper_full = place(bf, -1)
+    diag_tiles = place(ff, group_offset) + place(bb, group_offset - 1)
+    upper_full = place(bf, group_offset - 1)
     return diag_tiles, upper_full
 
 
-def _assemble_sc(S_loc, row_idx, nc: int, assembly: str):
+def _tile_sc(q, ns: int, dt_c, ut_full, group=None):
+    """Block-tridiagonal S = Q - sum_i A_i K_i^{-1} A_i^T from the tile-form
+    contributions ``_chain_tiles`` gives, summed over ``group`` (a sharded
+    solver's ranks) in one reduction of the diagonal and upper tiles."""
+    from parapint_tpu_torch.linalg.tridiag import BlockTridiag, extract_tridiag
+
+    ng = dt_c.shape[0]
+    both = all_reduce_sum(torch.cat([dt_c, ut_full[:-1]]), group)
+    q_tri = extract_tridiag(q, ns)
+    return BlockTridiag(diag=q_tri.diag - both[:ng], upper=q_tri.upper - both[ng:])
+
+
+def _assemble_sc(S_loc, row_idx, nc: int, assembly: str, group_offset: int = 0):
     """Place per-block local SC contributions (N, L, L) into the dense
     global (nc, nc) Schur complement."""
     if assembly == "shared":
@@ -302,7 +330,7 @@ def _assemble_sc(S_loc, row_idx, nc: int, assembly: str):
         if ns == 0 or nc % ns != 0:
             return _scatter_sc(S_loc, row_idx, nc)
         ng = nc // ns
-        diag_tiles, upper_tiles = _chain_tiles(S_loc, nc)
+        diag_tiles, upper_tiles = _chain_tiles(S_loc, nc, group_offset)
         S = torch.zeros((ng, ns, ng, ns), dtype=S_loc.dtype, device=S_loc.device)
         g = torch.arange(ng, device=S_loc.device)
         S[g, :, g, :] = diag_tiles
@@ -312,25 +340,27 @@ def _assemble_sc(S_loc, row_idx, nc: int, assembly: str):
     return _scatter_sc(S_loc, row_idx, nc)
 
 
-def _sc_contribution_local(LD, border_loc, row_idx, nc: int, assembly: str = "scatter"):
+def _sc_contribution_local(LD, border_loc, row_idx, nc: int, assembly: str = "scatter",
+                           group_offset: int = 0):
     """sum_i P_i (A_i K_i^{-1} A_i^T) P_i^T, packed-LDL mode."""
-    return _assemble_sc(_local_solve_products(LD, border_loc), row_idx, nc, assembly)
+    return _assemble_sc(_local_solve_products(LD, border_loc), row_idx, nc, assembly, group_offset)
 
 
-def _sc_contribution_local_winv(W, d, s, border_loc, row_idx, nc: int, assembly: str = "scatter"):
+def _sc_contribution_local_winv(W, d, s, border_loc, row_idx, nc: int, assembly: str = "scatter",
+                                group_offset: int = 0):
     """W-mode local-border SC contribution: all matmuls + assembly."""
     S_loc = _winv_multi(W, d, s, border_loc.transpose(1, 2))
-    return _assemble_sc(S_loc, row_idx, nc, assembly)
+    return _assemble_sc(S_loc, row_idx, nc, assembly, group_offset)
 
 
-def _sc_tiles_local_winv(W, d, s, border_loc, nc: int):
+def _sc_tiles_local_winv(W, d, s, border_loc, nc: int, group_offset: int = 0):
     """Chain-topology SC contribution in tile form (W mode)."""
-    return _chain_tiles(_winv_multi(W, d, s, border_loc.transpose(1, 2)), nc)
+    return _chain_tiles(_winv_multi(W, d, s, border_loc.transpose(1, 2)), nc, group_offset)
 
 
-def _sc_tiles_local(LD, border_loc, nc: int):
+def _sc_tiles_local(LD, border_loc, nc: int, group_offset: int = 0):
     """Chain-topology SC contribution in tile form (packed-LDL mode)."""
-    return _chain_tiles(_local_solve_products(LD, border_loc), nc)
+    return _chain_tiles(_local_solve_products(LD, border_loc), nc, group_offset)
 
 
 def _tridiag_sc_capable(sc_solver, kkt) -> bool:
@@ -372,39 +402,46 @@ def _chain_border_ok(assembly, border_loc, nc: int) -> bool:
     return L % 2 == 0 and ns > 0 and nc > 0 and nc % ns == 0
 
 
-def _border_apply_chain(border_loc, v, nc: int):
+def _border_apply_chain(border_loc, v, nc: int, group_offset: int = 0):
     """Chain-topology sum_i P_i A_i v_i -> (nc,): rows [0, ns) of block b
-    target group b-1, rows [ns, 2ns) group b."""
+    target group b-1, rows [ns, 2ns) group b, b counted from
+    ``group_offset``."""
     Nb, L, _ = border_loc.shape
     ns = L // 2
     ng = nc // ns
+    off = group_offset
     contrib = (border_loc.to(v.dtype) @ v[:, :, None])[..., 0]
     out = contrib.new_zeros((ng + 2, ns))
-    out[1 : Nb + 1] += contrib[:, ns:]  # fwd of block b -> group b
-    out[0:Nb] += contrib[:, :ns]  # bwd of block b -> group b-1
+    out[off + 1 : off + Nb + 1] += contrib[:, ns:]  # fwd of block b -> group b
+    out[off : off + Nb] += contrib[:, :ns]  # bwd of block b -> group b-1
     return out[1 : ng + 1].reshape(nc)
 
 
-def _border_y_loc_chain(y, Nb: int, L: int):
+def _border_y_loc_chain(y, Nb: int, L: int, group_offset: int = 0):
     """(Nb, L) per-block local rows of the coupling vector for the chain
-    topology: rows [0, ns) read group b-1, rows [ns, 2ns) read group b."""
+    topology: rows [0, ns) read group b-1, rows [ns, 2ns) read group b, b
+    counted from ``group_offset``."""
     ns = L // 2
+    off = group_offset
     yg = y.reshape(-1, ns)
     z = yg.new_zeros((1, ns))
     ext = torch.cat([z, yg, z], dim=0)  # ext[g + 1] = group g
-    return torch.cat([ext[:Nb], ext[1 : Nb + 1]], dim=1)
+    return torch.cat([ext[off : off + Nb], ext[off + 1 : off + Nb + 1]], dim=1)
 
 
-def _border_T_apply_chain(border_loc, y):
+def _border_T_apply_chain(border_loc, y, group_offset: int = 0):
     """Chain-topology A_i^T P_i^T y per block -> (N, nk)."""
     Nb, L, _ = border_loc.shape
-    y_loc = _border_y_loc_chain(y, Nb, L)
+    y_loc = _border_y_loc_chain(y, Nb, L, group_offset)
     return (y_loc[:, None, :] @ border_loc.to(y.dtype))[:, 0, :]
 
 
-def _kkt_matvec(fact: SchurFactor, x: BlockRhs, dtype=None) -> BlockRhs:
+def _kkt_matvec(fact: SchurFactor, x: BlockRhs, dtype=None, group=None) -> BlockRhs:
     """K @ x for the full block-bordered system (iterative refinement).
-    With ``dtype`` every operand is cast first (the cheap residual probe)."""
+    With ``dtype`` every operand is cast first (the cheap residual probe).
+    With a process ``group`` the factor holds one rank's blocks and the
+    coupling part is summed over the group (``psum_axis`` in the JAX
+    package)."""
     diag, q = fact.diag, fact.q
     xb, xc = x.blocks, x.coupling
     border, border_loc = fact.border, fact.border_loc
@@ -413,8 +450,8 @@ def _kkt_matvec(fact: SchurFactor, x: BlockRhs, dtype=None) -> BlockRhs:
         diag, q, xb, xc, border, border_loc = map(cast, (diag, q, xb, xc, border, border_loc))
     bx = (diag.to(xb.dtype) @ xb[:, :, None])[..., 0]
     if _chain_border_ok(fact.assembly, border_loc, fact.nc):
-        bx = bx + _border_T_apply_chain(border_loc, xc)
-        cy = _border_apply_chain(border_loc, xb, fact.nc)
+        bx = bx + _border_T_apply_chain(border_loc, xc, fact.group_offset)
+        cy = _border_apply_chain(border_loc, xb, fact.nc, fact.group_offset)
     elif border_loc is not None:
         bx = bx + _border_T_apply_local(border_loc, fact.row_idx, xc)
         cy = _border_apply_local(border_loc, fact.row_idx, xb, fact.nc, fact.assembly)
@@ -422,35 +459,43 @@ def _kkt_matvec(fact: SchurFactor, x: BlockRhs, dtype=None) -> BlockRhs:
         bd = border.to(xb.dtype)
         bx = bx + torch.einsum("bci,c->bi", bd, xc.to(xb.dtype))
         cy = torch.einsum("bci,bi->c", bd, xb)
+    cy = all_reduce_sum(cy, group)
     cy = cy + q.to(cy.dtype) @ xc.to(cy.dtype)
     return BlockRhs(blocks=bx, coupling=cy)
 
 
-def _refine_probe(fact: SchurFactor, rhs: BlockRhs, x: BlockRhs, trigger: float) -> torch.Tensor:
+def _refine_probe(fact: SchurFactor, rhs: BlockRhs, x: BlockRhs, trigger: float,
+                  group=None) -> torch.Tensor:
     """Device bool: the f32 residual ||rhs - K x|| exceeds both trigger *
     max(1, ||rhs||) and the probe's own floor, 32 eps_f32 ||(|K| |x|)||.
     The matvecs run in f32, the norms in the rhs dtype (squares of f32
-    values overflow); a non-finite residual counts as failure."""
-    rn2, thresh = _refine_residual(fact, rhs, x, trigger)
+    values overflow); a non-finite residual counts as failure.  With a
+    process ``group`` the block norms are summed over it (the coupling part
+    is replicated and added once), so every rank reads the same flag."""
+    rn2, thresh = _refine_residual(fact, rhs, x, trigger, group)
     return ~torch.isfinite(rn2) | (rn2 > thresh)
 
 
-def _refine_residual(fact: SchurFactor, rhs: BlockRhs, x: BlockRhs, trigger: float):
+def _refine_residual(fact: SchurFactor, rhs: BlockRhs, x: BlockRhs, trigger: float, group=None):
     """(squared residual norm, squared threshold) of :func:`_refine_probe`."""
     f32 = torch.float32
-    kx = _kkt_matvec(fact, x, dtype=f32)
+    kx = _kkt_matvec(fact, x, dtype=f32, group=group)
     absf = lambda t: None if t is None else t.abs()
     afact = dataclasses.replace(
         fact, diag=fact.diag.abs(), q=fact.q.abs(),
         border=absf(fact.border), border_loc=absf(fact.border_loc),
     )
-    kabs = _kkt_matvec(afact, BlockRhs(x.blocks.abs(), x.coupling.abs()), dtype=f32)
+    kabs = _kkt_matvec(afact, BlockRhs(x.blocks.abs(), x.coupling.abs()), dtype=f32, group=group)
     wd = rhs.blocks.dtype
     rb = rhs.blocks.to(f32).to(wd) - kx.blocks.to(wd)
     rc = rhs.coupling.to(f32).to(wd) - kx.coupling.to(wd)
-    rn2 = (rb * rb).sum() + (rc * rc).sum()
-    bn2 = rhs.blocks.to(wd).square().sum() + rhs.coupling.to(wd).square().sum()
-    fn2 = kabs.blocks.to(wd).square().sum() + kabs.coupling.to(wd).square().sum()
+    # the three block sums in one reduction over the group
+    rb2, bb2, fb2 = all_reduce_sum(torch.stack([
+        (rb * rb).sum(), rhs.blocks.to(wd).square().sum(), kabs.blocks.to(wd).square().sum(),
+    ]), group)
+    rn2 = rb2 + (rc * rc).sum()
+    bn2 = bb2 + rhs.coupling.to(wd).square().sum()
+    fn2 = fb2 + kabs.coupling.to(wd).square().sum()
     eps = 32.0 * float(np.finfo(np.float32).eps)
     thresh = torch.maximum((trigger * trigger) * torch.clamp(bn2, min=1.0), (eps * eps) * fn2)
     return rn2, thresh
@@ -475,6 +520,10 @@ class SchurComplementSolver(LinearSolver):
     ``n_solves`` back solves through the Schur complement (two block
     applies each) and ``n_gate_fallbacks`` the retries on the full W.
     """
+
+    # process group over which a sharded solver sums the coupling parts of
+    # its solves and refinement probes (None: serial)
+    group = None
 
     def __init__(
         self,
@@ -621,18 +670,20 @@ class SchurComplementSolver(LinearSolver):
         with record_function("sc_solver.block_solve"):
             v = self._apply_blocks(fact, rhs.blocks, hi)
             if chain:
-                sc_rhs = rhs.coupling - _border_apply_chain(fact.border_loc, v, fact.nc)
+                contrib = _border_apply_chain(fact.border_loc, v, fact.nc, fact.group_offset)
             elif local:
-                sc_rhs = rhs.coupling - _border_apply_local(
+                contrib = _border_apply_local(
                     fact.border_loc, fact.row_idx, v, fact.nc, fact.assembly
                 )
             else:
-                sc_rhs = rhs.coupling - torch.einsum("bci,bi->c", fact.border.to(v.dtype), v)
+                contrib = torch.einsum("bci,bi->c", fact.border.to(v.dtype), v)
+        with record_function("sc_solver.communicate"):
+            sc_rhs = rhs.coupling - all_reduce_sum(contrib, self.group)
         with record_function("sc_solver.sc_back_solve"):
             y = self.sc_solver.solve(fact.sc_fact, sc_rhs)
         with record_function("sc_solver.back_solve"):
             if chain:
-                rhs2 = rhs.blocks - _border_T_apply_chain(fact.border_loc, y)
+                rhs2 = rhs.blocks - _border_T_apply_chain(fact.border_loc, y, fact.group_offset)
             elif local:
                 rhs2 = rhs.blocks - _border_T_apply_local(fact.border_loc, fact.row_idx, y)
             else:
@@ -649,19 +700,19 @@ class SchurComplementSolver(LinearSolver):
             return BlockRhs(b.blocks.to(rhs.blocks.dtype), b.coupling.to(rhs.coupling.dtype))
 
         def refine_pass(x: BlockRhs, hi=False) -> BlockRhs:
-            kx = _kkt_matvec(fact, x)
+            kx = _kkt_matvec(fact, x, group=self.group)
             r = BlockRhs(rhs.blocks - kx.blocks, rhs.coupling - kx.coupling)
             dx = up(self._solve_once(fact, r, hi))
             return BlockRhs(x.blocks + dx.blocks, x.coupling + dx.coupling)
 
         def solve_adaptive(hi):
             x = up(self._solve_once(fact, rhs, hi))
-            need = _refine_probe(fact, rhs, x, REFINE_TRIGGER)
+            need = _refine_probe(fact, rhs, x, REFINE_TRIGGER, self.group)
             passes = 0
             while passes < REFINE_MAX_PASSES and bool(need.item()):
                 x = refine_pass(x, hi)
                 passes += 1
-                need = _refine_probe(fact, rhs, x, REFINE_TRIGGER)
+                need = _refine_probe(fact, rhs, x, REFINE_TRIGGER, self.group)
             return x, need
 
         if self.adaptive_refine:

@@ -185,7 +185,7 @@ def test_harness_matches_reference(jax_harness, method):
 
 
 def test_harness_refuses_psc_and_cpu_default():
-    with pytest.raises(NotImplementedError, match="psc"):
+    with pytest.raises(RuntimeError, match="psc runs on the ranks of a process group"):
         perf.run(method="psc", device="cpu", **HARNESS)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

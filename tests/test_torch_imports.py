@@ -34,6 +34,8 @@ def test_package_has_sources():
         "tools/__init__.py", "tools/kernel_lab.py", "tools/profile_numeric.py",
         "tools/profile_bench.py", "linalg/pcg_schur.py", "linalg/condensed.py",
         "interfaces/heterogeneous.py", "examples/performance/schur_complement.py",
+        "linalg/sharded_schur.py", "parallel/__init__.py", "parallel/mesh.py",
+        "parallel/distributed.py",
     } <= names
     for source in ("ldl_panel_winv.cu", "winv_apply.cu", "read_reduce.cu"):
         assert (PKG / "csrc" / source).exists()
@@ -59,7 +61,9 @@ def test_importing_the_port_loads_no_jax():
         "parapint_tpu_torch.tools.profile_numeric, parapint_tpu_torch.tools.profile_bench, "
         "parapint_tpu_torch.linalg.pcg_schur, parapint_tpu_torch.linalg.condensed, "
         "parapint_tpu_torch.interfaces.heterogeneous, "
-        "parapint_tpu_torch.examples.performance.schur_complement; "
+        "parapint_tpu_torch.examples.performance.schur_complement, "
+        "parapint_tpu_torch.linalg.sharded_schur, parapint_tpu_torch.parallel.mesh, "
+        "parapint_tpu_torch.parallel.distributed; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'parapint_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -292,5 +292,5 @@ def test_spec_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         stochastic.qp_spec(**QP)
     spec = stochastic.build_spec(device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requires mesh"):
         ptt.StochasticSchurComplementInteriorPointInterface(spec, ownership_map=[0, 0, 0])
