@@ -35,12 +35,16 @@ Cases and their references (tolerances are the JAX package's own tests'):
   ownership on 2 devices (status, iterations within 1, objective 1e-6,
   per-scenario primals in ORIGINAL order 1e-6), the accessors' order, and
   the map's validation;
+- the harness's psc on 3 blocks, whose default mesh leaves a rank out
+  (that rank returns None; the others match the serial ssc's max_err to
+  1e-10);
 - the harness's psc at the CPU tests' size: max_err within 1e-10 relative
   of the JAX psc solver's (``ShardedSchurComplementSolver(block_size=128)``
   on the harness's KKT); ``PCGSchurComplementSolver`` with a mesh on the 8-block
   KKT and ``CondensedLSQSolver`` with a mesh on 5 blocks (padded): 1e-9
   relative of the JAX package's with a mesh;
-- every array a rank wrote is bitwise equal on all ranks.
+- every array a rank wrote, but the per-rank ones, is bitwise equal on all
+  ranks.
 
     python -m pytest tests/test_torch_sharded.py -q
 """
@@ -68,6 +72,8 @@ CASES = {"dense8": ("dense", 8), "banded8": ("banded", 8), "dense11": ("dense", 
 QP_SMALL = dict(n_scenarios=4, n=48, me=12, n_first=8)
 OWNERSHIP = {2: [1, 0, 1, 0], 4: [3, 2, 1, 0]}
 HARNESS = dict(n_blocks=4, n_q_per_block=32, n_y_multiplier=2, n_theta=5)
+# 3 blocks: psc's default mesh is then a sub-mesh (1 of 2 ranks, 3 of 4)
+PSC_SUBMESH = dict(HARNESS, n_blocks=3)
 CONDENSED = dict(n_blocks=5, n_q_per_block=32, n_y_multiplier=2, n_theta=5)
 TOL = 1e-8
 OBJ_REL_GAP = 1e-6
@@ -254,6 +260,11 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
     r = perf.run(method="psc", **HARNESS, verbose=False, device="cpu")
     out["psc"] = np.array([r.status, r.max_err])
     out["psc/theta"] = r.theta
+    # a rank outside psc's sub-mesh takes no part and returns None
+    r = perf.run(method="psc", **PSC_SUBMESH, verbose=False, device="cpu")
+    ssc = perf.run(method="ssc", **PSC_SUBMESH, verbose=False, device="cpu")
+    out["rank/psc_submesh"] = np.array([r is not None, np.nan if r is None else r.max_err,
+                                        ssc.max_err])
 
     m = perf.SyntheticModel(**CONDENSED)
     csc = ptt.CondensedLSQSolver(tile_size=128, mesh=mesh)
@@ -618,6 +629,18 @@ def test_psc_matches_jax(sharded):
     assert abs(max_err - j_max_err) <= 1e-10 * abs(j_max_err), (max_err, j_max_err)
 
 
+def test_psc_on_a_sub_mesh(sharded):
+    """3 blocks: the largest rank count dividing them forms psc's mesh; its
+    members agree with the serial method, the other ranks return None."""
+    P, ranks = sharded[:2]
+    members = max(d for d in range(1, P + 1) if PSC_SUBMESH["n_blocks"] % d == 0)
+    for r, out in enumerate(ranks):
+        member, max_err, ssc = out["rank/psc_submesh"]
+        assert bool(member) == (r < members), (r, members)
+        if member:
+            assert abs(max_err - ssc) <= 1e-10 * abs(ssc), (max_err, ssc)
+
+
 @pytest.mark.parametrize("solver", ["pcg", "csc"])
 def test_mesh_solver_matches_jax(sharded, solver):
     P, ranks, _, refs = sharded
@@ -630,11 +653,14 @@ def test_mesh_solver_matches_jax(sharded, solver):
 
 
 def test_ranks_agree_bit_for_bit(sharded):
+    """Every result but the per-rank ones ("rank/...") is bitwise equal on
+    all ranks."""
     ranks = sharded[1]
     for r, other in enumerate(ranks[1:], start=1):
         assert other.keys() == ranks[0].keys()
         for key, a in ranks[0].items():
-            assert np.array_equal(a, other[key]), f"rank {r} differs at {key}"
+            if not key.startswith("rank/"):
+                assert np.array_equal(a, other[key]), f"rank {r} differs at {key}"
 
 
 @pytest.mark.cuda
