@@ -327,7 +327,6 @@ PCG_MESH_JAX_OBJECTIVE, PCG_MESH_JAX_ITERATIONS = 0.047561186977622474, 7
 BLOCK_PANELS_PER_NUMERIC = 8  # dense blocks: 1024 = 8 x 128, without cyclic reduction
 SHARDED_WORLD = 2
 SHARDED_TIMEOUT = 600  # seconds for the two ranks to run every case
-PG_TIMEOUT_S = 120  # a collective one rank never reaches fails after this
 
 # Panel kernels: kernel and plain version run the same float32 operations in
 # the same order per entry (each product rounded before its subtraction, no
@@ -1396,10 +1395,7 @@ def phase_sharded_one_rank(outdir):
     for the 2-rank phase to ``outdir``; returns the dense case's counts."""
     from parapint_tpu_torch.parallel import distributed
 
-    import datetime
-
-    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
-                           timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0)
     try:
         mesh = distributed.global_mesh("blocks")
         iface = _dense_iface()
@@ -1422,15 +1418,12 @@ def _sharded_rank(rank, world, port, smi, outdir):
     ``outdir/rank{rank}.pt``."""
     global SMI
     SMI = f"rank {rank}/{world}, {smi}"
-    import datetime
-
     import parapint_tpu_torch as ptt
     from parapint_tpu_torch.examples import burgers, stochastic
     from parapint_tpu_torch.examples.performance import schur_complement as perf
     from parapint_tpu_torch.parallel import distributed
 
-    distributed.initialize(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo",
-                           timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    distributed.initialize(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo")
     mesh = distributed.global_mesh("blocks")
     iterates, counts = {}, {}
 

@@ -47,7 +47,7 @@ from parapint_tpu_torch.ops.ldl import (
 )
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_pairs, scatter_add_rows
 from parapint_tpu_torch.ops.winv_apply import winv_apply_fused, winv_apply_plain
-from parapint_tpu_torch.parallel.mesh import all_reduce_sum
+from parapint_tpu_torch.parallel.mesh import all_reduce_max, all_reduce_sum
 
 # adaptive refinement: passes run while the float32 residual exceeds
 # REFINE_TRIGGER * ||rhs|| (and the probe's noise floor), at most
@@ -261,11 +261,6 @@ def _sc_contribution(LD, border, mask):
     """sum_i A_i K_i^{-1} A_i^T over the batch (dense borders, LD mode)."""
     S = _local_solve_products(LD, border)
     return torch.einsum("bck,b->ck", S, mask.to(S.dtype))
-
-
-def _form_sc(LD, border, q, mask):
-    """S = Q - sum_i A_i K_i^{-1} A_i^T, all blocks batched."""
-    return q - _sc_contribution(LD, border, mask)
 
 
 def _sc_contribution_winv(W, d, s, border, mask):
@@ -580,56 +575,67 @@ class SchurComplementSolver(LinearSolver):
         return LinearSolverResults(status=LinearSolverStatus.successful)
 
     def numeric(self, kkt) -> SchurFactor:
-        from parapint_tpu_torch.linalg.tridiag import BlockTridiag, extract_tridiag
-
         self.n_numeric += 1
+        return self._numeric(kkt, 0, kkt.diag.shape[0])
+
+    def _numeric(self, kkt, lo: int, hi: int) -> SchurFactor:
+        """Factor the blocks [lo, hi) of ``kkt``; their Schur-complement
+        contributions, inertia and status are summed over the solver's group
+        (the identity when serial), and the SC is factored on every rank."""
         nk = kkt.diag.shape[-1]
         nc = kkt.q.shape[-1]
         local = isinstance(kkt, LocalBlockKKT)
         tridiag = _tridiag_sc_capable(self.sc_solver, kkt)
         ns = kkt.border_loc.shape[1] // 2 if local else 0
-        border = kkt.border_loc if local else kkt.border
+        lk = block_range(kkt, lo, hi)
+        border = lk.border_loc if local else lk.border
+        assembly = lk.assembly if local else "scatter"
         # phase labels: the reference solver's named scopes
         if self.explicit_inverse:
             with record_function("sc_solver.factor_blocks"):
                 W, d, s, blk_inertia, blk_status = _factor_blocks_winv(
-                    kkt.diag, kkt.mask, self.block_size, self.factor_dtype, self.apply_dtype
+                    lk.diag, lk.mask, self.block_size, self.factor_dtype, self.apply_dtype
                 )
             LD = None
             with record_function("sc_solver.form_sc"):
                 if tridiag:
-                    dt_c, ut_full = _sc_tiles_local_winv(W, d, s, border, nc)
-                    q_tri = extract_tridiag(kkt.q.to(W.dtype), ns)
-                    sc = BlockTridiag(diag=q_tri.diag - dt_c, upper=q_tri.upper - ut_full[:-1])
+                    dt_c, ut_full = _sc_tiles_local_winv(W, d, s, border, nc, lo)
                 elif local:
                     contrib = _sc_contribution_local_winv(
-                        W, d, s, border, kkt.row_idx, nc, kkt.assembly
+                        W, d, s, border, lk.row_idx, nc, assembly, lo
                     )
-                    sc = kkt.q.to(W.dtype) - contrib
                 else:
-                    sc = kkt.q.to(W.dtype) - _sc_contribution_winv(W, d, s, border, kkt.mask)
+                    contrib = _sc_contribution_winv(W, d, s, border, lk.mask)
+            q = kkt.q.to(W.dtype)
             W_hi = None
             if self.w_store_dtype is not None:
+                # the SC above used the full factor-dtype W
                 if self.w_auto_gate and self.adaptive_refine:
                     W_hi = W
                 W = W.to(self.w_store_dtype)
         else:
             W = d = s = W_hi = None
             with record_function("sc_solver.factor_blocks"):
-                LD, blk_inertia, blk_status = _factor_blocks(kkt.diag, kkt.mask, self.block_size)
+                LD, blk_inertia, blk_status = _factor_blocks(lk.diag, lk.mask, self.block_size)
             if self.apply_dtype is not None and LD.dtype != self.apply_dtype:
                 # hybrid precision, LD form: pivots/inertia from the
                 # factor-dtype sweep, solves in apply_dtype (no equilibration)
                 LD = LD.to(self.apply_dtype)
             with record_function("sc_solver.form_sc"):
                 if tridiag:
-                    dt_c, ut_full = _sc_tiles_local(LD, border, nc)
-                    q_tri = extract_tridiag(kkt.q, ns)
-                    sc = BlockTridiag(diag=q_tri.diag - dt_c, upper=q_tri.upper - ut_full[:-1])
+                    dt_c, ut_full = _sc_tiles_local(LD, border, nc, lo)
                 elif local:
-                    sc = kkt.q - _sc_contribution_local(LD, border, kkt.row_idx, nc, kkt.assembly)
+                    contrib = _sc_contribution_local(LD, border, lk.row_idx, nc, assembly, lo)
                 else:
-                    sc = _form_sc(LD, border, kkt.q, kkt.mask)
+                    contrib = _sc_contribution(LD, border, lk.mask)
+            q = kkt.q
+        with record_function("sc_solver.communicate"):
+            if tridiag:
+                sc = _tile_sc(q, ns, dt_c, ut_full, self.group)
+            else:
+                sc = q - all_reduce_sum(contrib, self.group)
+            blk_inertia = all_reduce_sum(blk_inertia, self.group)
+            blk_status = all_reduce_max(blk_status, self.group)
         with record_function("sc_solver.factor_sc"):
             sc_fact = self.sc_solver.numeric(sc)
         sc_pos, sc_neg, sc_zero = self.sc_solver.inertia(sc_fact)
@@ -642,17 +648,18 @@ class SchurComplementSolver(LinearSolver):
             block_W_hi=W_hi,
             block_d=d,
             block_s=s,
-            diag=kkt.diag if keep else None,
+            diag=lk.diag if keep else None,
             q=kkt.q if keep else None,
-            border=None if local else kkt.border,
-            border_loc=kkt.border_loc if local else None,
-            row_idx=kkt.row_idx if local else None,
+            border=None if local else lk.border,
+            border_loc=lk.border_loc if local else None,
+            row_idx=lk.row_idx if local else None,
             sc_fact=sc_fact,
             inertia=inertia,
             status=status,
             nk=nk,
             nc=nc,
-            assembly=kkt.assembly if local else "scatter",
+            assembly=assembly,
+            group_offset=lo,
         )
 
     def _apply_blocks(self, fact: SchurFactor, b, hi: bool = False):

@@ -23,25 +23,12 @@ probe's flag) is all-reduced, so every rank takes every branch the same way.
 
 from typing import Optional
 
-import torch
 from torch.profiler import record_function
 
 from parapint_tpu_torch.linalg.schur import (
     BlockRhs,
-    LocalBlockKKT,
     SchurComplementSolver,
     SchurFactor,
-    _factor_blocks,
-    _factor_blocks_winv,
-    _sc_contribution,
-    _sc_contribution_local,
-    _sc_contribution_local_winv,
-    _sc_contribution_winv,
-    _sc_tiles_local,
-    _sc_tiles_local_winv,
-    _tile_sc,
-    _tridiag_sc_capable,
-    block_range,
     pad_block_count,
 )
 from parapint_tpu_torch.parallel.mesh import BlockAxis
@@ -57,8 +44,11 @@ class ShardedSchurComplementSolver(SchurComplementSolver):
     sharded solver has none).  The KKT passed to ``numeric`` and the rhs
     passed to ``solve`` are the full ones, the same on every rank; the
     factor holds this rank's blocks and ``n_numeric`` / ``n_solves`` count
-    this rank's work.  A packed-LDL^T factor (``explicit_inverse=False``)
-    is taken in the KKT's dtype, as in the JAX sharded solver.
+    this rank's work.  The factorization is the serial solver's, run over
+    this rank's blocks (``SchurComplementSolver._numeric``); so
+    ``apply_dtype`` also casts a packed-LDL^T factor
+    (``explicit_inverse=False``), as the serial solvers do (the JAX sharded
+    solver keeps that factor in the KKT's dtype).
     """
 
     def __init__(
@@ -90,78 +80,7 @@ class ShardedSchurComplementSolver(SchurComplementSolver):
         # any block count: pad with masked identity blocks to a multiple of
         # the rank count
         kkt = pad_block_count(kkt, self.n_shards)
-        N, nk = kkt.diag.shape[0], kkt.diag.shape[-1]
-        nc = kkt.q.shape[-1]
-        local = isinstance(kkt, LocalBlockKKT)
-        tridiag = _tridiag_sc_capable(self.sc_solver, kkt)
-        ns = kkt.border_loc.shape[1] // 2 if local else 0
-        lo, hi = self.axis.local_range(N)
-        lk = block_range(kkt, lo, hi)
-        border = lk.border_loc if local else lk.border
-        assembly = lk.assembly if local else "scatter"
-        if self.explicit_inverse:
-            with record_function("sc_solver.factor_blocks"):
-                W, d, s, blk_inertia, blk_status = _factor_blocks_winv(
-                    lk.diag, lk.mask, self.block_size, self.factor_dtype, self.apply_dtype
-                )
-            LD = None
-            with record_function("sc_solver.form_sc"):
-                if tridiag:
-                    dt_c, ut_full = _sc_tiles_local_winv(W, d, s, border, nc, lo)
-                elif local:
-                    contrib = _sc_contribution_local_winv(
-                        W, d, s, border, lk.row_idx, nc, assembly, lo
-                    )
-                else:
-                    contrib = _sc_contribution_winv(W, d, s, border, lk.mask)
-            q = kkt.q.to(W.dtype)
-            if self.w_store_dtype is not None:
-                # the SC above used the full factor-dtype W
-                W = W.to(self.w_store_dtype)
-        else:
-            W = d = s = None
-            with record_function("sc_solver.factor_blocks"):
-                LD, blk_inertia, blk_status = _factor_blocks(lk.diag, lk.mask, self.block_size)
-            with record_function("sc_solver.form_sc"):
-                if tridiag:
-                    dt_c, ut_full = _sc_tiles_local(LD, border, nc, lo)
-                elif local:
-                    contrib = _sc_contribution_local(LD, border, lk.row_idx, nc, assembly, lo)
-                else:
-                    contrib = _sc_contribution(LD, border, lk.mask)
-            q = kkt.q
-        with record_function("sc_solver.communicate"):
-            if tridiag:
-                sc = _tile_sc(q, ns, dt_c, ut_full, self.group)
-            else:
-                sc = q - self.axis.sum(contrib)
-            blk_inertia = self.axis.sum(blk_inertia)
-            blk_status = self.axis.max(blk_status)
-        # the SC is factored redundantly on every rank
-        with record_function("sc_solver.factor_sc"):
-            sc_fact = self.sc_solver.numeric(sc)
-        sc_pos, sc_neg, sc_zero = self.sc_solver.inertia(sc_fact)
-        inertia = blk_inertia + torch.stack([sc_pos, sc_neg, sc_zero]).to(torch.int32)
-        status = torch.maximum(blk_status, self.sc_solver.status(sc_fact))
-        keep = self.refine_steps > 0
-        return SchurFactor(
-            block_LD=LD,
-            block_W=W,
-            block_d=d,
-            block_s=s,
-            diag=lk.diag if keep else None,
-            q=kkt.q if keep else None,
-            border=None if local else lk.border,
-            border_loc=lk.border_loc if local else None,
-            row_idx=lk.row_idx if local else None,
-            sc_fact=sc_fact,
-            inertia=inertia,
-            status=status,
-            nk=nk,
-            nc=nc,
-            assembly=assembly,
-            group_offset=lo,
-        )
+        return self._numeric(kkt, *self.axis.local_range(kkt.diag.shape[0]))
 
     def _solve_refined(self, fact: SchurFactor, rhs: BlockRhs):
         """(full replicated solution, refined_ok): this rank's rows of the

@@ -18,37 +18,31 @@ import torch
 import torch.distributed as dist
 
 
-def _default_device_type() -> str:
-    # the mesh's device type only labels it; collectives run on the default
-    # group's backend, and gloo reduces CPU and CUDA tensors alike
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
-
-
-def block_mesh(n_devices: Optional[int] = None, axis_name: str = "blocks",
-               device_type: Optional[str] = None):
+def block_mesh(n_devices: Optional[int] = None, axis_name: str = "blocks"):
     """A 1-D mesh over the first ``n_devices`` ranks (default: all) of the
     default process group.  Every rank must call it (a sub-mesh creates a
     process group); a rank outside the mesh gets one whose
-    ``get_coordinate()`` is None."""
+    ``get_coordinate()`` is None.  The mesh's device type only labels it:
+    collectives run on the default group's backend, and gloo reduces CPU
+    and CUDA tensors alike."""
     from torch.distributed.device_mesh import DeviceMesh
 
     world = dist.get_world_size()
     n = world if n_devices is None else n_devices
     if not 1 <= n <= world:
         raise ValueError(f"n_devices {n_devices} outside [1, {world}]")
-    return DeviceMesh(device_type or _default_device_type(), list(range(n)),
-                      mesh_dim_names=(axis_name,))
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, list(range(n)), mesh_dim_names=(axis_name,))
 
 
-def largest_divisor_mesh(n_blocks: int, axis_name: str = "blocks",
-                         device_type: Optional[str] = None):
+def largest_divisor_mesh(n_blocks: int, axis_name: str = "blocks"):
     """The mesh over the largest number of leading ranks that divides
     ``n_blocks`` (the reference harness's choice of rank count; the sharded
     solvers themselves pad any block count)."""
     n = dist.get_world_size()
     while n > 1 and n_blocks % n != 0:
         n -= 1
-    return block_mesh(n, axis_name, device_type)
+    return block_mesh(n, axis_name)
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
