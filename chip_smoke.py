@@ -6,8 +6,10 @@ interface; the two-stage stochastic QP at the JAX package's
 ``stochastic_qp_32scenarios_1k`` size; the farmer; the single-NLP examples
 through ``ip_solve``; the matrix-free PCG coupling solver; the
 condensed least-squares solver of the performance harness at the
-reference's default scale; and the sharded (multi-rank) solvers over
-``torch.distributed``.
+reference's default scale; the sharded (multi-rank) solvers over
+``torch.distributed``, with the interfaces' ``mesh=`` (each rank evaluates
+and assembles its own blocks); the host ``HostBKSolver``; and the
+reference-name layer ``parapint_tpu_torch.compat``.
 
     python3 chip_smoke.py
 
@@ -16,8 +18,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 1. device          — require CUDA; print the card's name and power limit,
                      the torch/CUDA versions and ``nvcc --version``.
 2. build           — compile ``parapint_tpu_torch/csrc/*.cu`` (one nvcc per
-                     source, the three started together) into
-                     ``parapint_tpu_torch/_build``.
+                     source) and ``csrc/bk_ldl.cpp`` (g++), the four started
+                     together, into ``parapint_tpu_torch/_build``.
 3. kernels         — every kernel entry (K1 ``ldl_panels_slab_winv``, K2
                      ``ldl_panels_slab``, K3 ``ldl_panels_batched_winv``, K4
                      ``ldl_panels_batched``, K5 ``ldl_panels``, K6
@@ -100,22 +102,43 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      configuration) and the fused driver: optimal at the JAX
                      objective, iterations within 1 of the JAX sharded run's,
                      K1 == 14 x numerics, K6 == 2 x back solves; then the
-                     first KKT through the LD mode (the 2-rank reference).
+                     first KKT through the LD mode (the 2-rank reference);
+                     then the same through a ``mesh=`` interface, whose
+                     range at one rank is every block: its final iterates
+                     ``torch.equal`` to the replicated run's.
 17. sharded, 2 ranks — two spawned ranks sharing the card over gloo (NCCL
-                     refuses two ranks on one device), 32 blocks each, run in
-                     turn: the dense flagship as in 16; the banded flagship
+                     refuses two ranks on one device), 32 blocks each.  Each
+                     case runs twice, with the interface replicated (every
+                     rank evaluates every block) and with ``mesh=`` on it
+                     (each rank evaluates and assembles its own blocks), the
+                     peak memory reset before each, and each rank prints its
+                     blocks, its ``eval_ad`` / ``kkt_from_ad`` time, its
+                     all-reduces and both peaks (the dense flagship's
+                     ``mesh=`` peak must be the lower): the dense flagship as
+                     in 16; the banded flagship
                      through ``ShardedBandedSchurComplementSolver`` (K1 == 22
                      x numerics per rank); 63 blocks padded to 64 with the
                      dense coupling (K1 == 8 and K5 == 24 x numerics); the
-                     stochastic QP with each rank owning the odd or the even
-                     scenarios (``ownership_map``); the first KKT in LD mode
-                     (K2 == 8, K5 == 25, the solution within 1e-3 x max|x| of
-                     the 1-rank run's); PCG with a mesh on bench_all's 8-block
-                     row (K1 == 8 x numerics, K6 == 2 x back solves + CG
-                     iterations) and the harness's psc.  Each case is optimal
-                     at its JAX objective with iterations within 1, each rank
-                     prints its launches and all-reduce time, and the ranks'
-                     final iterates are bitwise equal.
+                     stochastic QP (replicated in the original order; with
+                     ``mesh=`` each rank owning the odd or the even scenarios,
+                     ``ownership_map``); the flagship as two kinds (K1 == 14
+                     x numerics, K6 == 2 x back solves); the first KKT in LD
+                     mode of both dense interfaces (K2 == 8, K5 == 25, the
+                     solution within 1e-3 x max|x| of the 1-rank run's); PCG
+                     with a mesh on bench_all's 8-block row (K1 == 8 x
+                     numerics, K6 == 2 x back solves + CG iterations) and the
+                     harness's psc.  Each case is optimal at its JAX
+                     objective with iterations within 1, each rank prints its
+                     launches and all-reduce time, and the ranks' final
+                     iterates are bitwise equal.
+18. host BK        — ``HostBKSolver`` (the g++ build) through ``ip_solve`` on
+                     the single-NLP example, its model on the card: optimal in
+                     phase 11's iterations at its objective; one batched host
+                     factor of the 8-block PCG row's first-KKT blocks, its
+                     summed inertia equal to the card's W-form blocks'.
+19. compat         — the reference-style call site of ``tests/test_compat.py``
+                     through ``parapint_tpu_torch.compat`` on the card:
+                     optimal at the JAX ``compat`` run's objective.
 
 Every measurement line carries the card's name and power limit; kernel
 times are medians of CUDA-event windows (``tools/kernel_lab.py::timed_loop``).
@@ -327,6 +350,18 @@ PCG_MESH_JAX_OBJECTIVE, PCG_MESH_JAX_ITERATIONS = 0.047561186977622474, 7
 BLOCK_PANELS_PER_NUMERIC = 8  # dense blocks: 1024 = 8 x 128, without cyclic reduction
 SHARDED_WORLD = 2
 SHARDED_TIMEOUT = 600  # seconds for the two ranks to run every case
+# tests/test_compat.py's reference-style call site through the JAX
+# package's compat layer on the CPU (JAX_PLATFORMS=cpu):
+#   import jax.numpy as jnp, numpy as np, parapint_tpu as pt, parapint_tpu.compat as parapint
+#   model = pt.NLPModel(objective=lambda v: v[0] ** 2 + v[1] ** 2,
+#       eq_constraints=lambda v: jnp.array([v[1] - jnp.exp(v[0])]), x0=jnp.array([0.5, 0.5]))
+#   iface = parapint.interfaces.InteriorPointInterface(model)
+#   opts = parapint.algorithms.IPOptions()
+#   opts.linalg.solver = parapint.linalg.ScipyInterface(compute_inertia=True)
+#   print(parapint.algorithms.ip_solve(interface=iface, options=opts))
+#   x = np.asarray(iface.get_primals()); print(repr(float(x[0] ** 2 + x[1] ** 2)))
+#   # -> InteriorPointStatus.optimal 0.6080367853394799
+COMPAT_JAX_OBJECTIVE = 0.6080367853394799
 
 # Panel kernels: kernel and plain version run the same float32 operations in
 # the same order per entry (each product rounded before its subtraction, no
@@ -380,13 +415,17 @@ def phase_device():
 
 
 def phase_build():
+    from parapint_tpu_torch.linalg import host_bk
     from parapint_tpu_torch.ops import cuda_build, ldl_panel, read_reduce, winv_apply
 
     t0 = time.perf_counter()
-    paths = cuda_build.build_all([ldl_panel.SOURCE, winv_apply.SOURCE, read_reduce.SOURCE])
+    paths = cuda_build.build_all([ldl_panel.SOURCE, winv_apply.SOURCE, read_reduce.SOURCE,
+                                  host_bk.SOURCE])
     for module in (ldl_panel, winv_apply, read_reduce):
         module._load()
-    print(f"build: {sorted(p.name for p in paths.values())} in {time.perf_counter() - t0:.2f} s")
+    host_bk._lib()
+    print(f"build: {sorted(p.name for p in paths.values())} (nvcc x3, g++ x1, started together) "
+          f"in {time.perf_counter() - t0:.2f} s")
     for name, log in cuda_build.build_logs.items():
         print(f"--- {name}\n{log.strip()}")
 
@@ -658,11 +697,12 @@ def _dense_iface():
     return iface
 
 
-def burgers_two_kinds(spec, kkt_dtype=None):
+def burgers_two_kinds(spec, kkt_dtype=None, mesh=None):
     """The Burgers family of ``spec`` (a uniform ``DynamicModelSpec``) as a
     ``HeterogeneousDynamicInterface`` of two kinds: kind 0 (block 0) keeps
     every equality row, kind 1 (the other blocks) lacks the
-    initial-condition rows that the uniform spec masks out there."""
+    initial-condition rows that the uniform spec masks out there.  ``mesh``
+    as for the interface."""
     import parapint_tpu_torch as ptt
 
     dev = spec.device
@@ -678,7 +718,7 @@ def burgers_two_kinds(spec, kkt_dtype=None):
     N = spec.num_blocks
     return ptt.HeterogeneousDynamicInterface(
         kinds, [0] + [1] * (N - 1), [{"t0": t0[b]} for b in range(N)],
-        [spec.x0[b].cpu().numpy() for b in range(N)], kkt_dtype=kkt_dtype, device=dev,
+        [spec.x0[b].cpu().numpy() for b in range(N)], mesh=mesh, kkt_dtype=kkt_dtype, device=dev,
     )
 
 
@@ -1076,16 +1116,29 @@ def phase_farmer(device="cuda", family_ref=(FARMER32_JAX_OBJECTIVE, FARMER32_JAX
     return c
 
 
-def phase_single(device="cuda"):
-    """The single-NLP examples through ``ip_solve``."""
-    from parapint_tpu_torch.examples import dynamics, interior_point
+def _single_nlp(device, linear_solver=None):
+    """``examples/interior_point.main`` through ``ip_solve``: (x, iterations,
+    objective, wall)."""
+    from parapint_tpu_torch.examples import interior_point
+    from parapint_tpu_torch.utils.timer import HierarchicalTimer
 
+    timer = HierarchicalTimer()
     t0 = time.perf_counter()
-    x = interior_point.main(device=device).get_primals().cpu().numpy()
+    x = interior_point.main(linear_solver, device=device, timer=timer).get_primals().cpu().numpy()
     wall = time.perf_counter() - t0
+    n_iter = timer._root.children["IP solve"].children["convergence check"].count
+    return x, n_iter, float(x[0] ** 2 + x[1] ** 2), wall
+
+
+def phase_single(device="cuda"):
+    """The single-NLP examples through ``ip_solve``; returns the
+    interior_point example's (iterations, objective)."""
+    from parapint_tpu_torch.examples import dynamics
+
+    x, n_iter, obj, wall = _single_nlp(device)
     err = float(np.abs(x - np.array([0.0, 1.0])).max())
     say(f"interior_point example: x {x.tolist()}, max|d| to (0, 1) {err:.3e} (tol 1e-7), "
-        f"wall {wall:.3f} s")
+        f"iterations {n_iter}, objective {obj!r}, wall {wall:.3f} s")
     if not err <= 1e-7:
         raise AssertionError(f"interior_point example: x {x.tolist()}")
     t0 = time.perf_counter()
@@ -1096,6 +1149,7 @@ def phase_single(device="cuda"):
         f"wall {wall:.3f} s")
     if not err <= 1e-6:
         raise AssertionError(f"dynamics example: p(t) {p.tolist()}")
+    return n_iter, obj
 
 
 def phase_heterogeneous():
@@ -1329,11 +1383,38 @@ class _AllReduceClock:
             dist.all_reduce = orig
 
 
+@contextlib.contextmanager
+def _ad_clock(iface, seconds):
+    """Times the interface's ``eval_ad`` and ``kkt_from_ad`` while active,
+    each call between two synchronisations: ``seconds[name]`` collects
+    [calls, seconds]."""
+    for name in ("eval_ad", "kkt_from_ad"):
+        fn = getattr(iface, name)
+        seconds[name] = [0, 0.0]
+
+        def timed(*args, _fn=fn, _acc=seconds[name]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            torch.cuda.synchronize()
+            _acc[0] += 1
+            _acc[1] += time.perf_counter() - t0
+            return out
+
+        setattr(iface, name, timed)
+    try:
+        yield seconds
+    finally:
+        for name in ("eval_ad", "kkt_from_ad"):
+            delattr(iface, name)
+
+
 def _sharded_solve(iface, solver, label, ref, ref_iters, timed=1, tol=TOL):
     """One counted solve (``_counted_solve``: counts zeroed before, read
-    after), ``timed`` timed ones, then one more under the all-reduce clock.
-    Returns (final primals on the CPU, counts with the walls and the
-    all-reduce time)."""
+    after), ``timed`` timed ones, then one more under the all-reduce clock
+    and the AD clock.  Returns (final primals on the CPU, counts with the
+    walls, the all-reduce time and the ``eval_ad`` / ``kkt_from_ad`` time
+    and the blocks the rank evaluates)."""
     import parapint_tpu_torch as ptt
 
     result, c = _counted_solve(iface, solver, label, timed=timed, ref=ref, tol=tol)
@@ -1343,16 +1424,22 @@ def _sharded_solve(iface, solver, label, ref, ref_iters, timed=1, tol=TOL):
     opts.tol = tol
     opts.linalg.solver = solver
     clock = _AllReduceClock()
-    with clock.active():
+    with clock.active(), _ad_clock(iface, {}) as ad:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ptt.make_fused_ip_solve(iface, opts)(iface.init_state())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    lo, hi = iface.block_range
     c.update(clocked_wall_s=wall, all_reduces=clock.calls, all_reduce_s=clock.seconds,
-             all_reduce_bytes=clock.bytes)
-    say(f"{label}: solve with every all-reduce synchronised and timed {wall:.4f} s, of it "
-        f"{clock.calls} all-reduces {clock.seconds:.4f} s ({clock.bytes} bytes)")
+             all_reduce_bytes=clock.bytes, local_blocks=hi - lo, ncv=iface.ncv,
+             **{f"{k}_calls": v[0] for k, v in ad.items()},
+             **{f"{k}_ms": v[1] * 1e3 for k, v in ad.items()})
+    say(f"{label}: blocks {lo}..{hi - 1} of {iface.N} evaluated here; solve with every "
+        f"all-reduce and AD call synchronised and timed {wall:.4f} s, of it {clock.calls} "
+        f"all-reduces {clock.seconds:.4f} s ({clock.bytes} bytes), eval_ad "
+        f"{c['eval_ad_ms']:.2f} ms ({c['eval_ad_calls']} calls), kkt_from_ad "
+        f"{c['kkt_from_ad_ms']:.2f} ms ({c['kkt_from_ad_calls']} calls)")
     state = result.state.primals
     return {k: v.cpu() for k, v in state.items()}, c
 
@@ -1390,27 +1477,80 @@ def _sharded_ld(mesh, iface):
     return {"blocks": x.blocks.cpu(), "coupling": x.coupling.cpu()}, c
 
 
+def _dense_iface_on(mesh):
+    """The dense flagship's interface, with ``mesh=`` when one is given."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import burgers
+
+    return ptt.DynamicSchurComplementInteriorPointInterface(
+        burgers.build_spec(**FLAGSHIP), mesh=mesh, kkt_dtype=torch.float32)
+
+
 def phase_sharded_one_rank(outdir):
-    """Phase 16: one NCCL rank in this process.  Writes the LD-mode solution
-    for the 2-rank phase to ``outdir``; returns the dense case's counts."""
+    """Phase 16: one NCCL rank in this process, the dense flagship through
+    the sharded solver with the interface replicated and then with
+    ``mesh=`` on it (at one rank its range is every block, so the iterates
+    must be equal).  Writes the LD-mode solution for the 2-rank phase to
+    ``outdir``; returns both cases' counts."""
     from parapint_tpu_torch.parallel import distributed
 
     distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0)
     try:
         mesh = distributed.global_mesh("blocks")
         iface = _dense_iface()
-        _, c = _sharded_solve(iface, _sharded_dense_solver(mesh), "sharded dense flagship, 1 NCCL rank",
+        x, c = _sharded_solve(iface, _sharded_dense_solver(mesh), "sharded dense flagship, 1 NCCL rank",
                               JAX_OBJECTIVE, SHARDED_DENSE_JAX_ITERATIONS)
         _check("sharded dense, 1 rank", c["K1"] == DENSE_K1_PER_NUMERIC * c["numerics"] > 0
                and c["K6"] == 2 * c["solves"] > 0, c)
-        x, c_ld = _sharded_ld(mesh, iface)
+        x_ld, c_ld = _sharded_ld(mesh, iface)
         say(f"sharded LD mode first KKT, 1 NCCL rank: launches {c_ld}")
         _check("sharded LD mode, 1 rank", c_ld["K2"] == LD_K2_PER_NUMERIC
                and c_ld["K5"] == SC_PANELS_PER_NUMERIC, c_ld)
-        torch.save(x, os.path.join(outdir, "ld_one_rank.pt"))
+        torch.save(x_ld, os.path.join(outdir, "ld_one_rank.pt"))
+        del iface
+        iface = _dense_iface_on(mesh)
+        x_m, c_m = _sharded_solve(iface, _sharded_dense_solver(mesh),
+                                  "sharded dense flagship, mesh= interface, 1 NCCL rank",
+                                  JAX_OBJECTIVE, SHARDED_DENSE_JAX_ITERATIONS)
+        same = all(torch.equal(x_m[k], x[k]) for k in x)
+        say(f"sharded dense flagship, 1 NCCL rank: mesh= iterates equal to the replicated run's: {same}")
+        _check("sharded dense, mesh=, 1 rank", same and c_m["iterations"] == c["iterations"]
+               and c_m["K1"] == DENSE_K1_PER_NUMERIC * c_m["numerics"] > 0
+               and c_m["K6"] == 2 * c_m["solves"] > 0, c_m)
     finally:
         distributed.shutdown()
-    return c
+    return {"dense": c, "dense_mesh": c_m}
+
+
+def _replicated_and_mesh(mesh, label, build, make_solver, ref, ref_iters, ok, timed=1,
+                         after=None):
+    """A case of phase 17 twice: with the interface replicated (every rank
+    evaluates every block; the sharded solver takes its blocks) and with
+    ``mesh=`` on it (each rank evaluates and assembles its own), the peak of
+    ``torch.cuda.max_memory_allocated`` reset before each.  Both meet the
+    JAX reference and ``ok(counts)``; ``after(iface, counts)`` runs on each
+    interface after its solves (outside the peak).  Returns {mode:
+    (primals, counts)}."""
+    out = {}
+    for mode, m in (("replicated", None), ("mesh", mesh)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        iface = build(m)
+        x, c = _sharded_solve(iface, make_solver(iface), f"{label}, {mode}", ref, ref_iters,
+                              timed=timed)
+        c["peak_bytes"] = torch.cuda.max_memory_allocated()
+        _check(f"{label}, {mode}", ok(c), c)
+        if after is not None:
+            after(iface, x, c)
+        out[mode] = (x, c)
+        del iface
+    rep, msh = out["replicated"][1], out["mesh"][1]
+    say(f"{label}: local blocks {msh['local_blocks']} (replicated {rep['local_blocks']}); peak memory "
+        f"replicated {rep['peak_bytes'] / 2**20:.1f} MiB, mesh= {msh['peak_bytes'] / 2**20:.1f} MiB; "
+        f"eval_ad {rep['eval_ad_ms']:.2f} -> {msh['eval_ad_ms']:.2f} ms, kkt_from_ad "
+        f"{rep['kkt_from_ad_ms']:.2f} -> {msh['kkt_from_ad_ms']:.2f} ms per solve")
+    return out
 
 
 def _sharded_rank(rank, world, port, smi, outdir):
@@ -1427,72 +1567,92 @@ def _sharded_rank(rank, world, port, smi, outdir):
     mesh = distributed.global_mesh("blocks")
     iterates, counts = {}, {}
 
-    iface = _dense_iface()
-    iterates["dense"], c = _sharded_solve(iface, _sharded_dense_solver(mesh), "sharded dense flagship",
-                                          JAX_OBJECTIVE, SHARDED_DENSE_JAX_ITERATIONS)
-    counts["dense"] = c
-    _check("sharded dense", c["K1"] == DENSE_K1_PER_NUMERIC * c["numerics"] > 0
-           and c["K6"] == 2 * c["solves"] > 0, c)
-    x, c = _sharded_ld(mesh, iface)
-    iterates["ld"] = x
-    ref = torch.load(os.path.join(outdir, "ld_one_rank.pt"))
-    dx = max((x[k] - ref[k]).abs().max().item() for k in x)
-    scale = max(ref[k].abs().max().item() for k in ref)
-    c.update(max_dx_to_one_rank=dx, max_x=scale)
-    counts["ld"] = c
-    say(f"sharded LD mode first KKT: max|dx| to the 1-rank run {dx:.3e} (max|x| {scale:.3e}, "
-        f"tol {LD_SOLUTION_RTOL} x max|x|), launches {c}")
-    _check("sharded LD mode", c["K2"] == LD_K2_PER_NUMERIC and c["K5"] == SC_PANELS_PER_NUMERIC
-           and dx <= LD_SOLUTION_RTOL * scale, c)
-    del iface
+    def keep(key, runs):
+        for mode, (x, c) in runs.items():
+            k = key if mode == "replicated" else f"{key}/mesh"
+            iterates[k], counts[k] = x, c
+
+    ld_ref = torch.load(os.path.join(outdir, "ld_one_rank.pt"))
+
+    def ld_mode(iface, _, c_solve):
+        x, c = _sharded_ld(mesh, iface)
+        dx = max((x[k] - ld_ref[k]).abs().max().item() for k in x)
+        scale = max(ld_ref[k].abs().max().item() for k in ld_ref)
+        c.update(max_dx_to_one_rank=dx, max_x=scale)
+        key = "ld" if iface.mesh is None else "ld/mesh"
+        iterates[key], counts[key] = x, c
+        say(f"sharded LD mode first KKT ({key}): max|dx| to the 1-rank run {dx:.3e} (max|x| "
+            f"{scale:.3e}, tol {LD_SOLUTION_RTOL} x max|x|), launches {c}")
+        _check("sharded LD mode", c["K2"] == LD_K2_PER_NUMERIC and c["K5"] == SC_PANELS_PER_NUMERIC
+               and dx <= LD_SOLUTION_RTOL * scale, c)
+
+    dense_ok = lambda c: (c["K1"] == DENSE_K1_PER_NUMERIC * c["numerics"] > 0
+                          and c["K6"] == 2 * c["solves"] > 0)
+    runs = _replicated_and_mesh(
+        mesh, "sharded dense flagship", _dense_iface_on, lambda _: _sharded_dense_solver(mesh),
+        JAX_OBJECTIVE, SHARDED_DENSE_JAX_ITERATIONS, dense_ok, after=ld_mode)
+    keep("dense", runs)
+    if not runs["mesh"][1]["peak_bytes"] < runs["replicated"][1]["peak_bytes"]:
+        raise AssertionError("dense flagship: the mesh= peak memory is not below the replicated one's")
     torch.cuda.empty_cache()
 
-    iface = ptt.DynamicSchurComplementInteriorPointInterface(
-        burgers.build_spec(**FLAGSHIP), kkt_dtype=torch.float32, block_form="banded")
-    solver = ptt.ShardedBandedSchurComplementSolver(
-        mesh, tile_size=TILE_SIZE, schur_complement_solver=ptt.BlockTridiagSolver(ns=iface.ns))
-    iterates["banded"], c = _sharded_solve(iface, solver, "sharded banded flagship", JAX_OBJECTIVE,
-                                           SHARDED_BANDED_JAX_ITERATIONS)
-    counts["banded"] = c
-    _check("sharded banded", c["K1"] == BANDED_PANELS_PER_NUMERIC * c["numerics"] > 0, c)
-    del iface, solver
+    keep("banded", _replicated_and_mesh(
+        mesh, "sharded banded flagship",
+        lambda m: ptt.DynamicSchurComplementInteriorPointInterface(
+            burgers.build_spec(**FLAGSHIP), mesh=m, kkt_dtype=torch.float32, block_form="banded"),
+        lambda iface: ptt.ShardedBandedSchurComplementSolver(
+            mesh, tile_size=TILE_SIZE, schur_complement_solver=ptt.BlockTridiagSolver(ns=iface.ns)),
+        JAX_OBJECTIVE, SHARDED_BANDED_JAX_ITERATIONS,
+        lambda c: c["K1"] == BANDED_PANELS_PER_NUMERIC * c["numerics"] > 0))
     torch.cuda.empty_cache()
 
-    iface = ptt.DynamicSchurComplementInteriorPointInterface(
-        burgers.build_spec(**ODD), kkt_dtype=torch.float32)
-    sc_panels = -(-iface.ncv // 128)
-    iterates["odd"], c = _sharded_solve(iface, _sharded_dense_solver(mesh, "dense"),
-                                        f"sharded dense {ODD['num_time_blocks']} blocks (padded)",
-                                        ODD_JAX_OBJECTIVE, ODD_JAX_ITERATIONS)
-    counts["odd"] = c
-    _check("sharded 63 blocks", c["K1"] == BLOCK_PANELS_PER_NUMERIC * c["numerics"] > 0
-           and c["K5"] == sc_panels * c["numerics"] and c["K6"] == 2 * c["solves"], c)
-    del iface
+    keep("odd", _replicated_and_mesh(
+        mesh, f"sharded dense {ODD['num_time_blocks']} blocks (padded)",
+        lambda m: ptt.DynamicSchurComplementInteriorPointInterface(
+            burgers.build_spec(**ODD), mesh=m, kkt_dtype=torch.float32),
+        lambda _: _sharded_dense_solver(mesh, "dense"), ODD_JAX_OBJECTIVE, ODD_JAX_ITERATIONS,
+        lambda c: (c["K1"] == BLOCK_PANELS_PER_NUMERIC * c["numerics"] > 0
+                   and c["K5"] == -(-c["ncv"] // 128) * c["numerics"]
+                   and c["K6"] == 2 * c["solves"]),
+        timed=0))
     torch.cuda.empty_cache()
 
+    # the QP: replicated in the original order, with mesh= each rank owning
+    # the odd or the even scenarios (ownership_map)
     own = [i % world for i in range(QP["n_scenarios"])]
-    iface = ptt.StochasticSchurComplementInteriorPointInterface(
-        stochastic.qp_spec(**QP), mesh=mesh, kkt_dtype=torch.float32, ownership_map=own)
-    solver = ptt.ShardedSchurComplementSolver(
-        mesh, "blocks", block_size=128, explicit_inverse=True, factor_dtype=torch.float64,
-        apply_dtype=torch.float32)
-    # the counted solve is warm here: no separately timed one
-    iterates["qp"], c = _sharded_solve(iface, solver, "sharded stochastic QP, odd/even ownership",
-                                       QP_OWN_JAX_OBJECTIVE, QP_OWN_JAX_ITERATIONS, timed=0)
-    counts["qp"] = c
-    iterates["qp"]["blocks_original_order"] = iface.get_primals()["blocks"].cpu()
-    _check("sharded QP", c["K6"] == 2 * c["solves"] > 0 and c["K5"] == c["numerics"] > 0
-           and not any(c[k] for k in ("K1", "K2", "K3", "K4")), c)
-    del iface, solver
+    qp_runs = _replicated_and_mesh(
+        mesh, "sharded stochastic QP",
+        lambda m: ptt.StochasticSchurComplementInteriorPointInterface(
+            stochastic.qp_spec(**QP), mesh=m, kkt_dtype=torch.float32,
+            ownership_map=None if m is None else own),
+        lambda _: ptt.ShardedSchurComplementSolver(
+            mesh, "blocks", block_size=128, explicit_inverse=True, factor_dtype=torch.float64,
+            apply_dtype=torch.float32),
+        QP_OWN_JAX_OBJECTIVE, QP_OWN_JAX_ITERATIONS,
+        lambda c: (c["K6"] == 2 * c["solves"] > 0 and c["K5"] == c["numerics"] > 0
+                   and not any(c[k] for k in ("K1", "K2", "K3", "K4"))),
+        timed=0,
+        after=lambda iface, x, c: x.update(blocks_original_order=iface.get_primals()["blocks"].cpu()))
+    keep("qp", qp_runs)
     torch.cuda.empty_cache()
 
-    iface = ptt.DynamicSchurComplementInteriorPointInterface(
-        burgers.build_spec(**PCG_SHAPE), kkt_dtype=torch.float32)
-    solver = ptt.PCGSchurComplementSolver(mesh, "blocks", block_size=128, factor_dtype=torch.float32)
-    iterates["pcg"], c = _sharded_solve(iface, solver, "PCG with a mesh, 8 blocks",
-                                        PCG_MESH_JAX_OBJECTIVE, PCG_MESH_JAX_ITERATIONS)
-    counts["pcg"] = c
-    _pcg_kernels_ok(c, "PCG with a mesh, 8 blocks")
+    keep("heterogeneous", _replicated_and_mesh(
+        mesh, "sharded heterogeneous flagship (two kinds)",
+        lambda m: burgers_two_kinds(burgers.build_spec(**FLAGSHIP), kkt_dtype=torch.float32, mesh=m),
+        lambda _: _sharded_dense_solver(mesh), JAX_OBJECTIVE, JAX_DENSE_ITERATIONS, dense_ok))
+    torch.cuda.empty_cache()
+
+    def pcg_ok(c):
+        _pcg_kernels_ok(c, "PCG with a mesh, 8 blocks")
+        return True
+
+    keep("pcg", _replicated_and_mesh(
+        mesh, "PCG with a mesh, 8 blocks",
+        lambda m: ptt.DynamicSchurComplementInteriorPointInterface(
+            burgers.build_spec(**PCG_SHAPE), mesh=m, kkt_dtype=torch.float32),
+        lambda _: ptt.PCGSchurComplementSolver(mesh, "blocks", block_size=128,
+                                               factor_dtype=torch.float32),
+        PCG_MESH_JAX_OBJECTIVE, PCG_MESH_JAX_ITERATIONS, pcg_ok))
 
     psc = perf.run(method="psc", **CSC_SMALL, verbose=False)
     ssc = perf.run(method="ssc", **CSC_SMALL, verbose=False)
@@ -1504,6 +1664,67 @@ def _sharded_rank(rank, world, port, smi, outdir):
 
     torch.save({"iterates": iterates, "counts": counts}, os.path.join(outdir, f"rank{rank}.pt"))
     distributed.shutdown()
+
+
+def phase_host_bk(single):
+    """Phase 18: ``HostBKSolver`` (the g++ build of ``csrc/bk_ldl.cpp``)
+    through ``ip_solve`` on the single-NLP example, its model on the card:
+    optimal at phase 11's iterations and objective.  Then one batched host
+    factor of the first-KKT blocks of bench_all's 8-block PCG row, whose
+    summed inertia must equal the card's block factorization's (K1)."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import burgers
+    from parapint_tpu_torch.linalg.schur import _factor_blocks_winv
+
+    x, n_iter, obj, wall = _single_nlp("cuda", ptt.HostBKSolver())
+    say(f"HostBKSolver ip_solve, single NLP on the card: x {x.tolist()}, iterations {n_iter} "
+        f"(DenseLDLSolver {single[0]}), objective {obj!r} (DenseLDLSolver {single[1]!r}), "
+        f"wall {wall:.3f} s")
+    if n_iter != single[0] or abs(obj - single[1]) > OBJ_REL_GAP * max(1.0, abs(single[1])):
+        raise AssertionError(f"HostBKSolver ip_solve: {n_iter} iterations, objective {obj}")
+    iface = ptt.DynamicSchurComplementInteriorPointInterface(
+        burgers.build_spec(**PCG_SHAPE), kkt_dtype=torch.float32)
+    kkt, _ = _first_kkt(iface)
+    solver = ptt.HostBKSolver()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fact = solver.numeric(kkt.diag)
+    host_s = time.perf_counter() - t0
+    host = tuple(int(v) for v in solver.inertia(fact))
+    *_, inertia, status = _factor_blocks_winv(kkt.diag, kkt.mask, 128, torch.float32)
+    card = tuple(int(v) for v in inertia.cpu())
+    say(f"HostBKSolver batched factor of {tuple(kkt.diag.shape)} first-KKT blocks ({kkt.diag.dtype} "
+        f"read as float64): {host_s:.3f} s on the host (OpenMP, {os.cpu_count()} cores), status "
+        f"{int(solver.status(fact))}, summed inertia {host} (card W-form blocks {card}, status "
+        f"{int(status)})")
+    if host != card or int(solver.status(fact)) != 0:
+        raise AssertionError(f"HostBKSolver: inertia {host} vs the card's {card}")
+    return dict(iterations=n_iter, objective=obj, factor_s=host_s, inertia=host)
+
+
+def phase_compat():
+    """Phase 19: the reference-style call site through
+    ``parapint_tpu_torch.compat`` on the card (``tests/test_compat.py``):
+    optimal at the JAX ``compat`` run's objective."""
+    import parapint_tpu_torch as ptt
+    import parapint_tpu_torch.compat as parapint
+
+    model = ptt.NLPModel(
+        objective=lambda v: v[0] ** 2 + v[1] ** 2,
+        eq_constraints=lambda v: torch.stack([v[1] - torch.exp(v[0])]),
+        x0=[0.5, 0.5],
+    )
+    interface = parapint.interfaces.InteriorPointInterface(model)
+    options = parapint.algorithms.IPOptions()
+    options.linalg.solver = parapint.linalg.ScipyInterface(compute_inertia=True)
+    status = parapint.algorithms.ip_solve(interface=interface, options=options)
+    x = interface.get_primals().cpu().numpy()
+    obj = float(x[0] ** 2 + x[1] ** 2)
+    gap = abs(obj - COMPAT_JAX_OBJECTIVE) / max(1.0, abs(COMPAT_JAX_OBJECTIVE))
+    say(f"compat call site on the card: {status.name}, objective {obj!r} (JAX compat "
+        f"{COMPAT_JAX_OBJECTIVE!r}, rel gap {gap:.3e})")
+    if status != parapint.algorithms.InteriorPointStatus.optimal or gap > OBJ_REL_GAP:
+        raise AssertionError(f"compat: {status.name}, objective {obj}")
 
 
 def phase_sharded_two_ranks(outdir):
@@ -1560,7 +1781,7 @@ def main():
     phase_stochastic_qp()
     torch.cuda.empty_cache()
     phase_farmer()
-    phase_single()
+    single = phase_single()
     banded = phase_banded()
     phase_heterogeneous()
     torch.cuda.empty_cache()
@@ -1573,6 +1794,8 @@ def main():
         sharded_one = phase_sharded_one_rank(outdir)
         torch.cuda.empty_cache()
         sharded_two = phase_sharded_two_ranks(outdir)
+    host_bk = phase_host_bk(single)
+    phase_compat()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     src = "parapint_tpu_torch/csrc/ldl_panel_winv.cu"
@@ -1609,8 +1832,9 @@ def main():
         })
     print(f"banded flagship K1 launches {banded['K1']} for {banded['numerics']} numerics [{SMI}]")
     # the sharded cases' counts, walls and all-reduce times per rank
-    print(json.dumps({"sharded": {"one_rank_nccl": {"dense": sharded_one},
-                                  f"{SHARDED_WORLD}_ranks_gloo": sharded_two}}))
+    print(json.dumps({"sharded": {"one_rank_nccl": sharded_one,
+                                  f"{SHARDED_WORLD}_ranks_gloo": sharded_two},
+                      "host_bk": host_bk}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -33,6 +33,7 @@ from parapint_tpu_torch.linalg import (  # noqa: E402
     CondensedLSQSolver,
     DenseLDLSolver,
     DenseLUSolver,
+    HostBKSolver,
     LinearSolver,
     LinearSolverResults,
     LinearSolverStatus,
@@ -73,6 +74,7 @@ __all__ = [
     "BandedSchurComplementSolver",
     "DenseLDLSolver",
     "DenseLUSolver",
+    "HostBKSolver",
     "SchurComplementSolver",
     "ShardedSchurComplementSolver",
     "ShardedBandedSchurComplementSolver",

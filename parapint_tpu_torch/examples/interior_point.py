@@ -10,7 +10,7 @@ import torch
 import parapint_tpu_torch as ptt
 
 
-def main(linear_solver=None, device="cuda"):
+def main(linear_solver=None, device="cuda", timer=None):
     model = ptt.NLPModel(
         objective=lambda v: v[0] ** 2 + v[1] ** 2,
         eq_constraints=lambda v: torch.stack([v[1] - torch.exp(v[0])]),
@@ -23,7 +23,7 @@ def main(linear_solver=None, device="cuda"):
     interface = ptt.InteriorPointInterface(model)
     options = ptt.IPOptions()
     options.linalg.solver = linear_solver or ptt.DenseLDLSolver(block_size=8)
-    status = ptt.ip_solve(interface, options)
+    status = ptt.ip_solve(interface, options, timer=timer)
     if status != ptt.InteriorPointStatus.optimal:
         raise RuntimeError(f"interior_point: ip_solve ended with {status}")
     return interface

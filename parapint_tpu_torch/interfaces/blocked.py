@@ -155,9 +155,6 @@ class BatchedNLPFunctions:
 
         self.jtprod = vmap(_jtprod)
 
-    def total_objective(self, xs, ps, xms):
-        return self.f(xs, ps, xms).sum()
-
 
 def sub_kkt_layout(n: int, me: int, mi: int, n_link: int):
     """Offsets of the per-block variable families [x, s, y_eq, y_ineq, lam]

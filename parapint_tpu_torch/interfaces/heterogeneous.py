@@ -15,6 +15,7 @@ Dense block form only: the kinds offer no HVP/JVP/VJP probes, so the
 banded form is refused.
 """
 
+import copy
 import dataclasses
 from typing import Callable, List, Optional, Sequence
 
@@ -129,6 +130,23 @@ class MultiKindNLPFunctions:
             n_ineq if kind.n_ineq else 0,
         )
 
+    def restrict(self, lo: int, hi: int) -> "MultiKindNLPFunctions":
+        """The same functions over the blocks [lo, hi) only (one rank's
+        range): each kind keeps its blocks that lie there, re-indexed from
+        lo, with their parameters."""
+        out = copy.copy(self)
+        out.N = hi - lo
+        out.kind_idx, out.kind_params = [], []
+        for idx, p in zip(self.kind_idx, self.kind_params):
+            keep = None if idx is None else ((idx >= lo) & (idx < hi)).nonzero()[:, 0]
+            if keep is None or keep.numel() == 0:
+                out.kind_idx.append(None)
+                out.kind_params.append(None)
+            else:
+                out.kind_idx.append(idx[keep] - lo)
+                out.kind_params.append({k: v[keep] for k, v in p.items()})
+        return out
+
     def _kinds(self):
         """(kind spec, its padded family, block indices, stacked params)
         for every kind with blocks."""
@@ -170,9 +188,6 @@ class MultiKindNLPFunctions:
 
     def f(self, xs, params, xm):
         return self._segmented((), "f", xs, xm)
-
-    def total_objective(self, xs, params, xm):
-        return self.f(xs, params, xm).sum()
 
     def grad_f(self, xs, params, xm):
         return self._segmented((self.n_x,), "grad_f", xs, xm)
@@ -219,7 +234,10 @@ class HeterogeneousDynamicInterface(StructuredSCInterface):
     casts the iterate for the KKT matrix data; the kinds' parameters stay in
     their own dtype (values promote inside the kind functions).  The
     tensors live on ``device``: the card by default (pass ``device="cpu"``
-    for a CPU run); without CUDA the default raises.
+    for a CPU run); without CUDA the default raises.  ``mesh`` /
+    ``axis_name`` as for the uniform interface: each rank evaluates only
+    its own blocks, each kind's pass over that kind's blocks in the rank's
+    range.
     """
 
     def __init__(
@@ -228,6 +246,8 @@ class HeterogeneousDynamicInterface(StructuredSCInterface):
         kind_of_block,
         params_per_block,
         x0_per_block,
+        mesh=None,
+        axis_name: str = "blocks",
         kkt_dtype=None,
         block_form: str = "dense",
         device="cuda",
@@ -298,4 +318,7 @@ class HeterogeneousDynamicInterface(StructuredSCInterface):
                 row_idx[i, ns:] = i * ns + np.arange(ns)
         self.row_idx = torch.as_tensor(row_idx, device=device)
         self.sc_assembly = "chain"
-        self._finalize(kkt_dtype=kkt_dtype, block_form=block_form)
+        self._finalize(mesh=mesh, axis_name=axis_name, kkt_dtype=kkt_dtype, block_form=block_form)
+
+    def _own_functions(self, lo: int, hi: int):
+        return self.fns.restrict(lo, hi)

@@ -136,8 +136,10 @@ class StochasticSchurComplementInteriorPointInterface(StructuredSCInterface):
     permutation that makes each rank's scenarios contiguous, so that the
     sharded solvers' contiguous split hands each rank its own scenarios;
     ``block_perm`` maps storage order to the original scenario index, and
-    the per-scenario accessors answer in ORIGINAL scenario order.  The mesh
-    serves only this: the iterate stays replicated on every rank.
+    the per-scenario accessors answer in ORIGINAL scenario order.  With a
+    ``mesh`` each rank evaluates the model and assembles the KKT for its own
+    (contiguous) scenarios only, for a sharded solver over the same mesh;
+    the iterate stays whole on every rank (see ``structured.py``).
     """
 
     def __init__(self, spec: StochasticModelSpec, mesh=None, axis_name: str = "blocks",
@@ -187,7 +189,7 @@ class StochasticSchurComplementInteriorPointInterface(StructuredSCInterface):
         self.link_mask = torch.ones((N, L), dtype=F64, device=device)
         self.row_idx = torch.arange(L, device=device).expand(N, L).contiguous()
         self.sc_assembly = "shared"
-        self._finalize(kkt_dtype=kkt_dtype)
+        self._finalize(mesh=mesh, axis_name=axis_name, kkt_dtype=kkt_dtype)
 
     # -- per-scenario accessors, in ORIGINAL scenario order ---------------------
 

@@ -22,7 +22,23 @@ link selectors and the border strips are built once as tensors on the
 interface's device.  Working vectors (rhs, residuals, convergence) are
 float64; the KKT matrix data (blocks, borders) is in ``kkt_dtype`` when one
 is given.
+
+With a ``mesh`` (a 1-D ``DeviceMesh``; ``parallel.mesh``) each rank
+evaluates the model and assembles the KKT for its own blocks only, the
+range ``BlockAxis.local_range`` gives it (the sharded solvers' range): the
+objective terms, gradient, residuals, Jacobians and Hessian (or the banded
+probes), the J^T y contraction, the KKT data and the rhs blocks.  The
+iterate stays whole and the same on every rank; the vectors that the
+convergence check, the merit and the step read (per-block objective,
+gradient, J^T y, residuals) are gathered exactly into it, in one
+all-reduce per AD sweep and one per merit evaluation, so every rank takes
+every branch alike.  The KKT and rhs that reach the solver are the rank's
+part (``LocalBlockKKT.global_blocks``): a sharded solver over the same
+mesh takes them, a serial one raises.
 """
+
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,8 +60,30 @@ from parapint_tpu_torch.interfaces.blocked import (
 from parapint_tpu_torch.linalg.banded_schur import BandedLocalBlockKKT
 from parapint_tpu_torch.linalg.schur import BlockRhs, LocalBlockKKT
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_rows
+from parapint_tpu_torch.parallel.mesh import BlockAxis
 
 F64 = torch.float64
+
+
+@dataclasses.dataclass(frozen=True)
+class _BlockView:
+    """The block-axis data that the model evaluation and the KKT assembly
+    read: every block's without a mesh (the interface's own tensors), else
+    the rows of the rank's range."""
+
+    fns: object
+    params: dict
+    params_kkt: dict
+    x_mask: torch.Tensor
+    eq_mask: torch.Tensor
+    ineq_mask: torch.Tensor
+    link_rows: torch.Tensor
+    link_rows_kkt: torch.Tensor
+    link_mask: torch.Tensor
+    row_idx: torch.Tensor
+    border: torch.Tensor  # dense: the border strips; banded: with permuted columns
+    w_mask: Optional[torch.Tensor] = None  # banded regularization masks
+    c_mask: Optional[torch.Tensor] = None
 
 
 class StructuredSCInterface(base.BaseInteriorPointInterface):
@@ -65,9 +103,23 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
       self.x0 (N, n) float64 initial primals
     """
 
-    def _finalize(self, kkt_dtype=None, block_form: str = "dense"):
+    def _finalize(self, mesh=None, axis_name: str = "blocks", kkt_dtype=None,
+                  block_form: str = "dense"):
         if block_form not in ("dense", "banded"):
             raise ValueError(f"unknown block_form {block_form!r}")
+        self.mesh, self.axis_name = mesh, axis_name
+        self.axis = None if mesh is None else BlockAxis.of(mesh, axis_name)
+        lo, hi = 0, self.N
+        if self.axis is not None:
+            lo, hi = self.axis.local_range(self.N)
+            hi = min(hi, self.N)
+            if hi <= lo:
+                raise ValueError(
+                    f"{self.N} blocks over {self.axis.size} ranks of {axis_name!r} leave rank "
+                    f"{self.axis.index} no block (ceil(N/P) blocks per rank)"
+                )
+        # the blocks this rank evaluates and assembles (all without a mesh)
+        self.block_range = (lo, hi)
         self.block_form = block_form
         if not hasattr(self, "sc_assembly"):
             self.sc_assembly = "scatter"
@@ -116,6 +168,44 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         self.n_ineq_real = int(self.ineq_mask.sum())
         self._bounds_relaxation_factor = 0.0
         self._set_bounds()
+        banded = block_form == "banded"
+        own = self._own
+        self._view = _BlockView(
+            fns=self.fns if self.axis is None else self._own_functions(lo, hi),
+            params={k: own(v) for k, v in self.params.items()},
+            params_kkt={k: own(v) for k, v in self._params_kkt.items()},
+            x_mask=own(self.x_mask),
+            eq_mask=own(self.eq_mask),
+            ineq_mask=own(self.ineq_mask),
+            link_rows=own(self.link_rows),
+            link_rows_kkt=own(self._link_rows_kkt),
+            link_mask=own(self.link_mask),
+            row_idx=own(self.row_idx),
+            border=own(self._border_loc_perm if banded else self._border_loc),
+            w_mask=own(self._b_w_mask) if banded else None,
+            c_mask=own(self._b_c_mask) if banded else None,
+        )
+
+    def _own_functions(self, lo: int, hi: int):
+        """The batched model functions over the blocks [lo, hi) (a rank's
+        range); the parameters are sliced beside them."""
+        return self.fns
+
+    def _own(self, t):
+        """This rank's rows of a block-axis tensor (every row without a
+        mesh)."""
+        if self.axis is None:
+            return t
+        lo, hi = self.block_range
+        return t[lo:hi]
+
+    def _gather(self, *tensors):
+        """Block-axis tensors evaluated on this rank's rows, whole and the
+        same on every rank (exact; one all-reduce for all of them); without
+        a mesh they are whole already."""
+        if self.axis is None:
+            return tensors
+        return self.axis.gather_rows(list(tensors), self.N)
 
     # -- banded block form ---------------------------------------------------
 
@@ -165,22 +255,23 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         self._b_w_mask = w_mask[:, self._b_perm]
         self._b_c_mask = c_mask[:, self._b_perm]
 
-    def _banded_bands0(self, state, sigma_x, sigma_s):
-        """Per-iteration banded KKT assembly by probing: (N, p+1, nk) lower
-        bands of the permuted per-block KKTs at w_reg = c_reg = 0."""
-        fns = self.fns
+    def _banded_bands0(self, x, yeq, yineq, sigma_x, sigma_s):
+        """Per-iteration banded KKT assembly by probing: (n, p+1, nk) lower
+        bands of the permuted per-block KKTs at w_reg = c_reg = 0, for the
+        rank's n blocks (every block without a mesh), whose rows the
+        arguments are."""
+        v = self._view
+        fns = v.fns
         cast, params = self._kkt_cast()
-        x = cast(state.primals["blocks"])
-        yeq = cast(state.duals_eq["own"])
-        yineq = cast(state.duals_ineq)
+        x, yeq, yineq = cast(x), cast(yeq), cast(yineq)
         dt = x.dtype
-        xm = self.x_mask
-        em = self.eq_mask.to(dt)
-        im = self.ineq_mask.to(dt)
-        obf = torch.full((self.N,), self.obj_factor, dtype=dt, device=x.device)
+        xm = v.x_mask
+        em = v.eq_mask.to(dt)
+        im = v.ineq_mask.to(dt)
+        obf = torch.full((x.shape[0],), self.obj_factor, dtype=dt, device=x.device)
         Vx, Vs, Vyeq = self._b_Vx, self._b_Vs, self._b_Vyeq
         Vyineq, Vlam = self._b_Vyineq, self._b_Vlam
-        lrows = self._link_rows_kkt
+        lrows = v.link_rows_kkt
         sx = cast(sigma_x)
         ss = cast(sigma_s)
 
@@ -198,18 +289,18 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
             + torch.einsum("bln,ql->bqn", lrows, Vlam)
         )
         out_s = (
-            torch.where(self.ineq_mask, ss, 1.0)[:, None, :] * Vs[None]
+            torch.where(v.ineq_mask, ss, 1.0)[:, None, :] * Vs[None]
             - im[:, None, :] * Vyineq[None]
         )
-        out_yeq = jeq_v + torch.where(self.eq_mask, 0.0, -1.0).to(dt)[:, None, :] * Vyeq[None]
+        out_yeq = jeq_v + torch.where(v.eq_mask, 0.0, -1.0).to(dt)[:, None, :] * Vyeq[None]
         out_yineq = (
             jineq_v
             - im[:, None, :] * Vs[None]
-            + torch.where(self.ineq_mask, 0.0, -1.0).to(dt)[:, None, :] * Vyineq[None]
+            + torch.where(v.ineq_mask, 0.0, -1.0).to(dt)[:, None, :] * Vyineq[None]
         )
         out_lam = (
             torch.einsum("bln,qn->bql", lrows, Vx)
-            + torch.where(self.link_mask > 0, 0.0, -1.0).to(dt)[:, None, :] * Vlam[None]
+            + torch.where(v.link_mask > 0, 0.0, -1.0).to(dt)[:, None, :] * Vlam[None]
         )
         Y = torch.cat([out_x, out_s, out_yeq, out_yineq, out_lam], dim=2)
         # permute ROWS (K v is a row-space vector), then extract bands:
@@ -248,8 +339,12 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         return self._current_state.primals["coupling"]
 
     def evaluate_objective(self):
-        x = self._current_state.primals["blocks"]
-        return self.fns.total_objective(x, self.params, self.x_mask)
+        """The whole problem's objective (with a mesh: every rank calls it,
+        each evaluating its own blocks)."""
+        v = self._view
+        x = self._own(self._current_state.primals["blocks"])
+        (f,) = self._gather(v.fns.f(x, v.params, v.x_mask))
+        return f.sum()
 
     # -- bounds ----------------------------------------------------------------
 
@@ -293,7 +388,8 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         xl, xu = b.xl["blocks"], b.xu["blocks"]
         x = base.process_init(self.x0, xl, xu)
         c = zeros(self.ncv) if c0 is None else c0
-        s0 = self.fns.c_ineq(self.x0, self.params, self.x_mask, self.ineq_mask)
+        v = self._view
+        (s0,) = self._gather(v.fns.c_ineq(self._own(self.x0), v.params, v.x_mask, v.ineq_mask))
         s = base.process_init(s0, b.gl, b.gu)
         zl_w = ones(N, n) if zl0 is None else zl0
         zu_w = ones(N, n) if zu0 is None else zu0
@@ -367,7 +463,8 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
 
     def _grad_lag_primals(self, state, grad_f, jtlam, jac_eq=None, jac_ineq=None):
         """grad f + J^T y + link rows^T lam; ``jtlam`` None contracts the
-        materialized Jacobians instead (dense form without kkt_dtype)."""
+        materialized (whole) Jacobians instead (dense form without kkt_dtype
+        or mesh)."""
         if jtlam is None:
             jtlam = (state.duals_eq["own"][:, None, :] @ jac_eq)[:, 0, :] + (
                 state.duals_ineq[:, None, :] @ jac_ineq
@@ -379,69 +476,75 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
             + (lam[:, None, :] @ self.link_rows.to(lam.dtype))[:, 0, :]
         )
 
-    def _jtprod(self, state):
-        """Exact J^T-dual product via one VJP sweep (no Jacobians)."""
-        return self.fns.jtprod(
-            state.primals["blocks"],
-            state.duals_eq["own"],
-            state.duals_ineq,
-            self.params,
-            self.x_mask,
-            self.eq_mask,
-            self.ineq_mask,
-        )
+    def _jtprod(self, x, yeq, yineq):
+        """Exact J^T-dual product via one VJP sweep (no Jacobians), for the
+        rank's blocks, whose rows the arguments are."""
+        v = self._view
+        return v.fns.jtprod(x, yeq, yineq, v.params, v.x_mask, v.eq_mask, v.ineq_mask)
+
+    def _own_iterate(self, state):
+        """(x, y_eq, y_ineq): the rank's rows of the iterate's block parts."""
+        return (self._own(state.primals["blocks"]), self._own(state.duals_eq["own"]),
+                self._own(state.duals_ineq))
 
     # -- shared AD evaluation ----------------------------------------------------
 
     def _kkt_cast(self):
-        """(cast to kkt_dtype, parameters in kkt_dtype)."""
+        """(cast to kkt_dtype, the rank's parameters in kkt_dtype)."""
         kd = self.kkt_dtype
         if kd is None:
-            return (lambda a: a), self.params
-        return (lambda a: a.to(kd) if a.is_floating_point() else a), self._params_kkt
+            return (lambda a: a), self._view.params
+        return (lambda a: a.to(kd) if a.is_floating_point() else a), self._view.params_kkt
 
-    def _eval_hess(self, state):
-        """(N, n, n) Hessians of the Lagrangian, in ``kkt_dtype`` when set:
-        the Hessian enters only the KKT matrix, never the float64 rhs or
-        convergence numbers."""
+    def _eval_hess(self, x, yeq, yineq):
+        """(n, n_x, n_x) Hessians of the Lagrangian of the rank's n blocks, in
+        ``kkt_dtype`` when set: the Hessian enters only the KKT matrix, never
+        the float64 rhs or convergence numbers."""
+        v = self._view
         cast, params = self._kkt_cast()
-        x = cast(state.primals["blocks"])
-        obf = torch.full((self.N,), self.obj_factor, dtype=x.dtype, device=x.device)
-        return self.fns.hess_lag(
-            x, cast(state.duals_eq["own"]), cast(state.duals_ineq), obf, params,
-            self.x_mask, self.eq_mask, self.ineq_mask,
+        x = cast(x)
+        obf = torch.full((x.shape[0],), self.obj_factor, dtype=x.dtype, device=x.device)
+        return v.fns.hess_lag(
+            x, cast(yeq), cast(yineq), obf, params, v.x_mask, v.eq_mask, v.ineq_mask,
         )
 
-    def _eval_jacs(self, state):
-        """Materialized constraint Jacobians, in ``kkt_dtype`` when set (the
-        float64 dual contraction then comes from :meth:`_jtprod`)."""
+    def _eval_jacs(self, x):
+        """Materialized constraint Jacobians of the rank's blocks, in
+        ``kkt_dtype`` when set (the float64 dual contraction then comes from
+        :meth:`_jtprod`)."""
+        v = self._view
         cast, params = self._kkt_cast()
-        args = (cast(state.primals["blocks"]), params, self.x_mask)
-        return self.fns.jac_eq(*args, self.eq_mask), self.fns.jac_ineq(*args, self.ineq_mask)
+        args = (cast(x), params, v.x_mask)
+        return v.fns.jac_eq(*args, v.eq_mask), v.fns.jac_ineq(*args, v.ineq_mask)
 
     def eval_ad(self, state):
         """One AD sweep per iteration: every derivative quantity that both
         the convergence check and the KKT assembly need.  Banded mode
         probes the KKT later (kkt_from_ad) and always needs the exact J^T y;
         dense mode materializes the Hessian and Jacobians, and contracts the
-        duals through them unless they are in reduced precision."""
-        fns = self.fns
-        args = (state.primals["blocks"], self.params, self.x_mask)
-        out = dict(
-            obj=fns.total_objective(*args),
-            grad_f=fns.grad_f(*args),
-            c_eq=fns.c_eq(*args, self.eq_mask),
-            c_ineq=fns.c_ineq(*args, self.ineq_mask),
-            jac_eq=None,
-            jac_ineq=None,
-            hess=None,
-        )
-        if self.block_form == "banded":
-            out["jtlam"] = self._jtprod(state)
-            return out
-        out["jac_eq"], out["jac_ineq"] = self._eval_jacs(state)
-        out["jtlam"] = self._jtprod(state) if self.kkt_dtype is not None else None
-        out["hess"] = self._eval_hess(state)
+        duals through them unless they are in reduced precision (with a
+        mesh the contraction runs here, on the rank's Jacobians).  The
+        objective, gradient, residuals and J^T y come out whole; the
+        Jacobians and Hessian hold the rank's blocks."""
+        v = self._view
+        x, yeq, yineq = self._own_iterate(state)
+        args = (x, v.params, v.x_mask)
+        f = v.fns.f(*args)
+        grad_f = v.fns.grad_f(*args)
+        c_eq = v.fns.c_eq(*args, v.eq_mask)
+        c_ineq = v.fns.c_ineq(*args, v.ineq_mask)
+        out = dict(jac_eq=None, jac_ineq=None, hess=None)
+        jtlam = None
+        if self.block_form == "banded" or self.kkt_dtype is not None:
+            jtlam = self._jtprod(x, yeq, yineq)
+        if self.block_form == "dense":
+            jac_eq, jac_ineq = self._eval_jacs(x)
+            out.update(jac_eq=jac_eq, jac_ineq=jac_ineq)
+            if jtlam is None and self.axis is not None:
+                jtlam = (yeq[:, None, :] @ jac_eq)[:, 0, :] + (yineq[:, None, :] @ jac_ineq)[:, 0, :]
+            out["hess"] = self._eval_hess(x, yeq, yineq)
+        f, grad_f, c_eq, c_ineq, jtlam = self._gather(f, grad_f, c_eq, c_ineq, jtlam)
+        out.update(obj=f.sum(), grad_f=grad_f, c_eq=c_eq, c_ineq=c_ineq, jtlam=jtlam)
         return out
 
     def convergence_from_ad(self, state, ad, barrier, error_scaling):
@@ -461,12 +564,15 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         Python-loop ``ip_solve``'s check; the fused solve shares one sweep
         between check and KKT through :meth:`eval_ad`).  The dual
         contraction is the exact float64 VJP, as in the reference."""
-        fns = self.fns
-        args = (state.primals["blocks"], self.params, self.x_mask)
+        v = self._view
+        x, yeq, yineq = self._own_iterate(state)
+        args = (x, v.params, v.x_mask)
+        f, grad_f, jtlam, c_eq, c_ineq = self._gather(
+            v.fns.f(*args), v.fns.grad_f(*args), self._jtprod(x, yeq, yineq),
+            v.fns.c_eq(*args, v.eq_mask), v.fns.c_ineq(*args, v.ineq_mask),
+        )
         return self._convergence_core(
-            state, self.bounds, fns.total_objective(*args), fns.grad_f(*args),
-            self._jtprod(state), fns.c_eq(*args, self.eq_mask),
-            fns.c_ineq(*args, self.ineq_mask), barrier, error_scaling,
+            state, self.bounds, f.sum(), grad_f, jtlam, c_eq, c_ineq, barrier, error_scaling,
         )
 
     def _convergence_core(
@@ -516,17 +622,20 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
     def merit_components(self, state, barrier):
         """(theta, phi) for a filter line search: theta = 1-norm of all
         constraint residuals, phi = barrier objective.  Values only."""
-        fns = self.fns
+        v = self._view
         x = state.primals["blocks"]
         s = state.slacks
-        args = (x, self.params, self.x_mask)
+        args = (self._own(x), v.params, v.x_mask)
+        f, c_eq, c_ineq = self._gather(
+            v.fns.f(*args), v.fns.c_eq(*args, v.eq_mask), v.fns.c_ineq(*args, v.ineq_mask)
+        )
         theta = (
-            fns.c_eq(*args, self.eq_mask).abs().sum()
-            + (fns.c_ineq(*args, self.ineq_mask) - s).abs().sum()
+            c_eq.abs().sum()
+            + (c_ineq - s).abs().sum()
             + self._link_resid(x, state.primals["coupling"]).abs().sum()
         )
         b = self.bounds
-        phi = self.obj_factor * fns.total_objective(*args) - barrier * (
+        phi = self.obj_factor * f.sum() - barrier * (
             base.log_barrier_sum(x, b.xl["blocks"], b.xu["blocks"])
             + base.log_barrier_sum(s, b.gl, b.gu)
         )
@@ -538,9 +647,10 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         return self.kkt_from_ad(state, self.eval_ad(state), barrier)
 
     def _kkt_core(self, state, bounds, ad, barrier):
-        """(matrix data, rhs): the (N, p+1, nk) band store (banded) or the
-        BlockKKTData of Hessians, Jacobians and barrier diagonals (dense), in
-        ``kkt_dtype``; the rhs is float64."""
+        """(matrix data, rhs): the (n, p+1, nk) band store (banded) or the
+        BlockKKTData of Hessians, Jacobians and barrier diagonals (dense) of
+        the rank's n blocks, in ``kkt_dtype``; the rhs is float64, its
+        blocks those rows of the rhs built from the whole vectors."""
         x = state.primals["blocks"]
         c = state.primals["coupling"]
         s = state.slacks
@@ -551,8 +661,9 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         sigma_s = base.barrier_hessian_diag(
             s, bounds.gl, bounds.gu, state.duals_slacks_lb, state.duals_slacks_ub
         )
+        own = self._own
         if self.block_form == "banded":
-            data = self._banded_bands0(state, sigma_x, sigma_s)
+            data = self._banded_bands0(*self._own_iterate(state), own(sigma_x), own(sigma_s))
         else:
             kd = self.kkt_dtype
             mcast = (lambda a: a) if kd is None else (lambda a: a.to(kd))
@@ -560,8 +671,8 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
                 hess=mcast(ad["hess"]),
                 jac_eq=mcast(ad["jac_eq"]),
                 jac_ineq=mcast(ad["jac_ineq"]),
-                sigma_x=mcast(sigma_x),
-                sigma_s=mcast(sigma_s),
+                sigma_x=mcast(own(sigma_x)),
+                sigma_s=mcast(own(sigma_s)),
             )
         c_eq, c_ineq = ad["c_eq"], ad["c_ineq"]
         rhs_x = -(
@@ -573,7 +684,7 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
             [rhs_x, rhs_s, -c_eq, -(c_ineq - s), -self._link_resid(x, c)], dim=1
         )
         rhs = BlockRhs(
-            blocks=rhs_blocks, coupling=self._scatter_link_duals_to_coupling(state.duals_eq)
+            blocks=own(rhs_blocks), coupling=self._scatter_link_duals_to_coupling(state.duals_eq)
         )
         return data, rhs
 
@@ -581,36 +692,41 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         """KKT with regularization: ``w_reg`` adds to the real x-variable
         diagonals, ``c_reg`` sets the real constraint diagonals to -c_reg,
         and the coupling block is Q = c_reg * I.  A ``LocalBlockKKT``
-        (dense) or a ``BandedLocalBlockKKT`` (banded)."""
+        (dense) or a ``BandedLocalBlockKKT`` (banded); with a mesh, of the
+        rank's blocks (``global_blocks`` and ``block_offset`` set)."""
         data = data_and_rhs[0]
+        v = self._view
+        lo, hi = self.block_range
+        part = {} if self.axis is None else dict(global_blocks=self.N, block_offset=lo)
         if self.block_form == "dense":
             diag = assemble_block_diag(
-                data, self.eq_mask, self.ineq_mask, self.x_mask,
-                self.link_rows, self.link_mask, w_reg, c_reg,
+                data, v.eq_mask, v.ineq_mask, v.x_mask, v.link_rows, v.link_mask, w_reg, c_reg,
             )
             dt = diag.dtype
             c_reg = torch.as_tensor(c_reg, dtype=dt, device=diag.device)
             return LocalBlockKKT.make(
                 diag=diag,
-                border_loc=self._border_loc,
-                row_idx=self.row_idx,
+                border_loc=v.border,
+                row_idx=v.row_idx,
                 q=c_reg * torch.eye(self.ncv, dtype=dt, device=diag.device),
                 assembly=self.sc_assembly,
+                **part,
             )
         dt = data.dtype
         w_reg = torch.as_tensor(w_reg, dtype=dt, device=data.device)
         c_reg = torch.as_tensor(c_reg, dtype=dt, device=data.device)
         bands = data.clone()
-        bands[:, 0, :] += w_reg * self._b_w_mask.to(dt) - c_reg * self._b_c_mask.to(dt)
+        bands[:, 0, :] += w_reg * v.w_mask.to(dt) - c_reg * v.c_mask.to(dt)
         return BandedLocalBlockKKT(
             sym_bands=bands,
-            border_loc=self._border_loc_perm.to(dt),
-            row_idx=self.row_idx,
+            border_loc=v.border.to(dt),
+            row_idx=v.row_idx,
             q=c_reg * torch.eye(self.ncv, dtype=dt, device=data.device),
-            mask=torch.ones(self.N, dtype=dt, device=data.device),
+            mask=torch.ones(hi - lo, dtype=dt, device=data.device),
             perm=self._b_perm,
             iperm=self._b_iperm,
             assembly=self.sc_assembly,
+            **part,
         )
 
     def kkt_rhs(self, data_and_rhs) -> BlockRhs:

@@ -1,11 +1,12 @@
 """Linear solver layer: the Schur-complement solvers (dense-block, banded
 and matrix-free PCG; serial and sharded over ``torch.distributed`` ranks),
-the condensed least-squares solver, the dense LDL^T / LU solvers and the
-cyclic-reduction coupling solver."""
+the condensed least-squares solver, the dense LDL^T / LU solvers, the
+host Bunch-Kaufman solver and the cyclic-reduction coupling solver."""
 
 from parapint_tpu_torch.linalg.results import LinearSolverResults, LinearSolverStatus
 from parapint_tpu_torch.linalg.base import LinearSolver
 from parapint_tpu_torch.linalg.dense import DenseLDLSolver, DenseLUSolver
+from parapint_tpu_torch.linalg.host_bk import HostBKSolver
 from parapint_tpu_torch.linalg.schur import (
     BlockKKT,
     BlockRhs,
@@ -30,6 +31,7 @@ __all__ = [
     "LinearSolver",
     "DenseLDLSolver",
     "DenseLUSolver",
+    "HostBKSolver",
     "BlockKKT",
     "BlockRhs",
     "LocalBlockKKT",

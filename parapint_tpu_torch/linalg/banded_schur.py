@@ -40,6 +40,8 @@ from parapint_tpu_torch.linalg.schur import (
     _chain_tiles,
     _factor_blocks_winv,
     _tile_sc,
+    require_whole,
+    shard_kkt,
 )
 from parapint_tpu_torch.linalg.tridiag import BlockTridiagSolver, _winv_to_inverse
 from parapint_tpu_torch.ops.banded import pad_sym_band, sym_band_to_tridiag_tiles
@@ -61,6 +63,7 @@ class BandedLocalBlockKKT:
     mask:       (N,) 1.0 for logical blocks
     perm/iperm: (nk,) permutation (permuted index i holds original perm[i])
     assembly:   SC topology ("chain" / "scatter" / "shared")
+    global_blocks / block_offset: a rank's part, as for ``LocalBlockKKT``
     """
 
     sym_bands: torch.Tensor
@@ -71,6 +74,8 @@ class BandedLocalBlockKKT:
     perm: torch.Tensor
     iperm: torch.Tensor
     assembly: str = "scatter"
+    global_blocks: Optional[int] = None
+    block_offset: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +174,8 @@ class BandedSchurFactor:
     # first global block of these blocks (a sharded solver's rank holds its
     # own blocks only)
     group_offset: int = 0
+    # the KKT's global_blocks (a rank-local KKT: the rhs is rank-local too)
+    global_blocks: Optional[int] = None
 
 
 def tridiag_tiles_matvec(diag_t, upper_t, x):
@@ -258,22 +265,25 @@ class BandedSchurComplementSolver(LinearSolver):
             raise ValueError(f"KKT on {dev}, solver built for {self.device}")
 
     def numeric(self, kkt: BandedLocalBlockKKT) -> BandedSchurFactor:
+        require_whole(kkt, self)
         self._check_device(kkt)
         self.n_numeric += 1
         return self._numeric(kkt, 0, kkt.sym_bands.shape[0])
 
     def _numeric(self, kkt: BandedLocalBlockKKT, lo: int, hi: int) -> BandedSchurFactor:
-        """Factor the blocks [lo, hi) of ``kkt``; what couples them to the
-        other blocks is summed over the solver's group."""
+        """Factor the global blocks [lo, hi) of ``kkt`` (held from its
+        ``block_offset`` on); what couples them to the other blocks is
+        summed over the solver's group."""
         nk = kkt.sym_bands.shape[-1]
         nc = kkt.q.shape[-1]
         ns = kkt.border_loc.shape[1] // 2
-        mask = kkt.mask[lo:hi]
-        A = kkt.border_loc[lo:hi]
-        row_idx = kkt.row_idx[lo:hi]
+        rows = slice(lo - kkt.block_offset, hi - kkt.block_offset)
+        mask = kkt.mask[rows]
+        A = kkt.border_loc[rows]
+        row_idx = kkt.row_idx[rows]
         N, L = A.shape[:2]
         with record_function("banded_sc.factor_blocks"):
-            diag_t, upper_t, ts, nk_pad = banded_tiles(kkt.sym_bands[lo:hi], self.tile_size)
+            diag_t, upper_t, ts, nk_pad = banded_tiles(kkt.sym_bands[rows], self.tile_size)
             thomas = thomas_factor_batched(diag_t, upper_t, mask)
         with record_function("banded_sc.form_sc"):
             # V = K^{-1} A^T over the L border columns (multi-RHS sweep)
@@ -298,17 +308,18 @@ class BandedSchurComplementSolver(LinearSolver):
                 + 2.0 * A.to(f32).square().sum(),
                 self.group,
             ) + kkt.q.to(f32).square().sum()
-            blk_inertia = all_reduce_sum(thomas.inertia, self.group)
+            # the identity rows that pad each block to whole tiles contribute
+            # +1 pivots each: taken off per rank, before the sum
+            pad_pos = (nk_pad - nk) * mask.sum().to(torch.int32)
+            blk_inertia = all_reduce_sum(
+                thomas.inertia - torch.stack([pad_pos, 0 * pad_pos, 0 * pad_pos]).to(torch.int32),
+                self.group,
+            )
             blk_status = all_reduce_max(thomas.status, self.group)
         with record_function("banded_sc.factor_sc"):
             sc_fact = self.sc_solver.numeric(sc)
         sc_pos, sc_neg, sc_zero = self.sc_solver.inertia(sc_fact)
-        # identity padding rows contribute +1 pivots each
-        pad_pos = (nk_pad - nk) * kkt.mask.sum().to(torch.int32)
         inertia = blk_inertia + torch.stack([sc_pos, sc_neg, sc_zero]).to(torch.int32)
-        inertia = inertia - torch.stack(
-            [pad_pos, torch.zeros_like(pad_pos), torch.zeros_like(pad_pos)]
-        ).to(torch.int32)
         status = torch.maximum(blk_status, self.sc_solver.status(sc_fact))
         return BandedSchurFactor(
             thomas=thomas,
@@ -329,6 +340,7 @@ class BandedSchurComplementSolver(LinearSolver):
             v_border=V,
             norm2=norm2,
             group_offset=lo,
+            global_blocks=kkt.global_blocks,
         )
 
     # -- solves -------------------------------------------------------------
@@ -494,8 +506,10 @@ class ShardedBandedSchurComplementSolver(BandedSchurComplementSolver):
     (:func:`pad_banded_block_count`), the Schur complement is all-reduced
     (in tile form for the time chain with ``BlockTridiagSolver``) and
     factored on every rank, and ``solve`` returns the full solution on
-    every rank.  Keywords as for :class:`BandedSchurComplementSolver`; the
-    counts are this rank's.
+    every rank.  The KKT and rhs are the full ones, the same on every rank,
+    or this rank's part from an interface built with the same mesh (as for
+    ``ShardedSchurComplementSolver``).  Keywords as for
+    :class:`BandedSchurComplementSolver`; the counts are this rank's.
     """
 
     def __init__(self, mesh, axis_name: str = "blocks", **kw):
@@ -509,13 +523,14 @@ class ShardedBandedSchurComplementSolver(BandedSchurComplementSolver):
     def numeric(self, kkt: BandedLocalBlockKKT) -> BandedSchurFactor:
         self._check_device(kkt)
         self.n_numeric += 1
-        kkt = pad_banded_block_count(kkt, self.n_shards)
-        return self._numeric(kkt, *self.axis.local_range(kkt.sym_bands.shape[0]))
+        return self._numeric(*shard_kkt(kkt, self.axis, pad_banded_block_count))
 
     def _solve_refined(self, fact: BandedSchurFactor, rhs: BlockRhs):
         nb = fact.v_border.shape[0] * self.n_shards
-        rp = self.axis.local_rows(rhs.blocks[:, fact.perm], nb)
+        rank_local = fact.global_blocks is not None
+        n = fact.global_blocks if rank_local else rhs.blocks.shape[0]
+        rp = self.axis.local_rows(rhs.blocks[:, fact.perm], nb, rank_local)
         x, ok = self._refine(fact, BlockRhs(blocks=rp, coupling=rhs.coupling))
         with record_function("banded_sc.communicate"):
-            xb = self.axis.gather_blocks(x.blocks, nb)[: rhs.blocks.shape[0]]
+            xb = self.axis.gather_blocks(x.blocks, nb)[:n]
         return BlockRhs(blocks=xb[:, fact.iperm], coupling=x.coupling), ok

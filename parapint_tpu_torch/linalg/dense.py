@@ -53,10 +53,12 @@ class DenseLDLSolver(LinearSolver):
     """Unpivoted blocked LDL^T (see :mod:`parapint_tpu_torch.ops.ldl`).
 
     ``block_size``: panel width (snapped to ``min(block_size, max(8, n))``);
-    only exact zero pivots count as zero; ``explicit_inverse``: store W = L^{-1}
-    instead of the packed factor; ``refine_steps``: refinement passes per
-    solve in explicit-inverse mode; ``factor_dtype``: factor in this dtype
-    (None = the input's).
+    ``explicit_inverse``: store W = L^{-1} instead of the packed factor;
+    ``refine_steps``: refinement passes per solve in explicit-inverse mode;
+    ``factor_dtype``: factor in this dtype (None = the input's);
+    ``zero_tol``: a pivot with |d| <= zero_tol * max(1, max|d|) counts as
+    zero (default 0.0: exact zeros only; ``compat.MumpsInterface`` maps the
+    reference's null-pivot threshold onto it).
     """
 
     def __init__(
@@ -65,11 +67,13 @@ class DenseLDLSolver(LinearSolver):
         explicit_inverse: bool = False,
         refine_steps: int = 1,
         factor_dtype=None,
+        zero_tol: float = 0.0,
     ):
         self.block_size = block_size
         self.explicit_inverse = explicit_inverse
         self.refine_steps = refine_steps
         self.factor_dtype = factor_dtype
+        self.zero_tol = zero_tol
 
     def symbolic(self, kkt: torch.Tensor) -> LinearSolverResults:
         if kkt.shape[-2] != kkt.shape[-1]:
@@ -90,7 +94,7 @@ class DenseLDLSolver(LinearSolver):
             s = None if s is None else s.to(self.factor_dtype)
         bs = min(self.block_size, max(8, n))
         LD, d = ldl_factor(kf, block_size=bs)
-        pos, neg, zero = ldl_inertia(d, n=n)
+        pos, neg, zero = ldl_inertia(d, n=n, zero_tol=self.zero_tol)
         # successful iff every logical pivot is cleanly nonzero and finite
         inertia = torch.stack([pos, neg, zero])
         status = _status((pos + neg) != n)

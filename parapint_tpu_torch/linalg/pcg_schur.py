@@ -26,10 +26,14 @@ With a mesh, each rank factors its own contiguous blocks of the KKT padded
 to a multiple of the rank count, and the Jacobi diagonal, the inertia, the
 status and the coupling part of each S matvec (one per CG iteration) are
 all-reduced over the mesh's process group; the CG vectors are the same on
-every rank.
+every rank.  The KKT and rhs are then either the full ones, the same on
+every rank, or this rank's part from an interface built with the same mesh
+(a ``LocalBlockKKT`` with ``global_blocks`` set and the rhs rows of its
+blocks); the solve returns the full solution either way.
 """
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -45,6 +49,8 @@ from parapint_tpu_torch.linalg.schur import (
     _winv_multi,
     block_range,
     pad_block_count,
+    require_whole,
+    shard_kkt,
 )
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_rows
 from parapint_tpu_torch.parallel.mesh import BlockAxis, all_reduce_max, all_reduce_sum
@@ -67,6 +73,7 @@ class PCGSchurFactor:
     status: torch.Tensor  # () int32
     nk: int
     nc: int
+    global_blocks: Optional[int] = None  # the KKT's: set when it was rank-local
 
 
 class PCGSchurComplementSolver(LinearSolver):
@@ -101,10 +108,11 @@ class PCGSchurComplementSolver(LinearSolver):
     def numeric(self, kkt: LocalBlockKKT) -> PCGSchurFactor:
         self.n_numeric += 1
         nc = kkt.q.shape[-1]
-        if self.axis is not None:
+        if self.axis is None:
+            require_whole(kkt, self)
+        else:
             # any block count: masked identity blocks pad it
-            kkt = pad_block_count(kkt, self.axis.size)
-            kkt = block_range(kkt, *self.axis.local_range(kkt.diag.shape[0]))
+            kkt = block_range(*shard_kkt(kkt, self.axis, pad_block_count))
         W, d, s, inertia, status = _factor_blocks_winv(
             kkt.diag, kkt.mask, self.block_size, self.factor_dtype
         )
@@ -131,6 +139,7 @@ class PCGSchurComplementSolver(LinearSolver):
             status=status,
             nk=kkt.diag.shape[-1],
             nc=nc,
+            global_blocks=kkt.global_blocks,
         )
 
     def _sc_matvec(self, fact: PCGSchurFactor, y):
@@ -177,7 +186,9 @@ class PCGSchurComplementSolver(LinearSolver):
         if self.axis is not None:
             # this rank's rows of the rhs padded like the factor
             nb = fact.block_W.shape[0] * self.axis.size
-            blocks = self.axis.local_rows(blocks, nb)
+            rank_local = fact.global_blocks is not None
+            n = fact.global_blocks if rank_local else blocks.shape[0]
+            blocks = self.axis.local_rows(blocks, nb, rank_local)
         v = _winv_apply_batched(fact.block_W, fact.block_d, fact.block_s, blocks).to(blocks.dtype)
         contrib = _border_apply_local(fact.border_loc, fact.row_idx, v, fact.nc)
         sc_rhs = rhs.coupling - all_reduce_sum(contrib, self.group)
@@ -186,7 +197,7 @@ class PCGSchurComplementSolver(LinearSolver):
         rhs2 = blocks - _border_T_apply_local(fact.border_loc, fact.row_idx, y)
         x = _winv_apply_batched(fact.block_W, fact.block_d, fact.block_s, rhs2).to(blocks.dtype)
         if self.axis is not None:
-            x = self.axis.gather_blocks(x, nb)[: rhs.blocks.shape[0]]
+            x = self.axis.gather_blocks(x, nb)[:n]
         solve_status = torch.where(
             neg,
             int(LinearSolverStatus.singular),

@@ -87,7 +87,13 @@ class LocalBlockKKT:
     rows all-zero), row_idx (N, L) global coupling row of each local row
     (nc = dump), q (nc, nc), mask (N,).  ``assembly`` is the SC topology:
     "scatter" (any), "shared" (row_idx == arange(L) for every block) or
-    "chain" (L = 2 ns, block i couples groups i-1 and i)."""
+    "chain" (L = 2 ns, block i couples groups i-1 and i).
+
+    ``global_blocks`` None: the KKT holds every block.  Else it is one
+    rank's part (an interface built with a mesh): the whole problem has
+    ``global_blocks`` blocks and this KKT holds its blocks
+    [block_offset, block_offset + N), the rank's range of
+    ``BlockAxis.local_range``; only a sharded solver takes it."""
 
     diag: torch.Tensor
     border_loc: torch.Tensor
@@ -95,9 +101,12 @@ class LocalBlockKKT:
     q: torch.Tensor
     mask: torch.Tensor
     assembly: str = "scatter"
+    global_blocks: Optional[int] = None
+    block_offset: int = 0
 
     @staticmethod
-    def make(diag, border_loc, row_idx, q, mask=None, assembly="scatter") -> "LocalBlockKKT":
+    def make(diag, border_loc, row_idx, q, mask=None, assembly="scatter", global_blocks=None,
+             block_offset=0) -> "LocalBlockKKT":
         if mask is None:
             mask = torch.ones(diag.shape[0], dtype=diag.dtype, device=diag.device)
         return LocalBlockKKT(
@@ -107,6 +116,8 @@ class LocalBlockKKT:
             q=q,
             mask=mask,
             assembly=assembly,
+            global_blocks=global_blocks,
+            block_offset=block_offset,
         )
 
 
@@ -133,6 +144,9 @@ class SchurFactor:
     # first global block (= coupling group) of these blocks: nonzero on the
     # ranks of a sharded solver, whose factor holds their own blocks only
     group_offset: int = 0
+    # the KKT's global_blocks: set when it was rank-local, so the rhs of a
+    # solve is rank-local too
+    global_blocks: Optional[int] = None
 
 
 def pad_block_count(kkt, multiple: int):
@@ -153,11 +167,11 @@ def pad_block_count(kkt, multiple: int):
     nc = kkt.q.shape[-1]
     if isinstance(kkt, LocalBlockKKT):
         L = kkt.border_loc.shape[1]
-        return LocalBlockKKT(
+        return dataclasses.replace(
+            kkt,
             diag=diag,
             border_loc=torch.cat([kkt.border_loc, kkt.border_loc.new_zeros((rem, L, nk))]),
             row_idx=torch.cat([kkt.row_idx, kkt.row_idx.new_full((rem, L), nc)]),
-            q=kkt.q,
             mask=mask,
             assembly="scatter" if kkt.assembly == "chain" else kkt.assembly,
         )
@@ -166,14 +180,54 @@ def pad_block_count(kkt, multiple: int):
 
 
 def block_range(kkt, lo: int, hi: int):
-    """The blocks [lo, hi) of a Block/LocalBlockKKT (q is shared): one
-    rank's part of the KKT of a sharded solver."""
+    """The global blocks [lo, hi) of a Block/LocalBlockKKT (q is shared):
+    one rank's part of the KKT of a sharded solver.  A rank-local KKT holds
+    them from its ``block_offset`` on."""
     if isinstance(kkt, LocalBlockKKT):
+        lo, hi = lo - kkt.block_offset, hi - kkt.block_offset
         return dataclasses.replace(
             kkt, diag=kkt.diag[lo:hi], border_loc=kkt.border_loc[lo:hi],
             row_idx=kkt.row_idx[lo:hi], mask=kkt.mask[lo:hi],
         )
     return dataclasses.replace(kkt, diag=kkt.diag[lo:hi], border=kkt.border[lo:hi], mask=kkt.mask[lo:hi])
+
+
+def shard_kkt(kkt, axis, pad):
+    """(kkt, lo, hi) for a sharded numeric over ``axis`` (a
+    ``BlockAxis``): [lo, hi) is this rank's range of the block count padded
+    to a multiple of the ranks, and ``kkt`` holds those blocks (``pad``:
+    ``pad_block_count`` or ``pad_banded_block_count``).  A whole KKT, the
+    same on every rank, is padded whole; a rank-local one (``global_blocks``
+    set) holds the rank's real blocks and pads its own tail.  Either way a
+    chain KKT whose count needs padding assembles by scatter on every rank,
+    as ``pad_block_count`` decides.  (A ``BlockKKT`` is always whole.)"""
+    N = getattr(kkt, "global_blocks", None)
+    if N is None:
+        kkt = pad(kkt, axis.size)
+        return (kkt, *axis.local_range(kkt.mask.shape[0]))
+    lo, hi = axis.local_range(N)
+    if kkt.block_offset != lo or kkt.mask.shape[0] != min(hi, N) - lo:
+        raise ValueError(
+            f"rank-local KKT holds blocks [{kkt.block_offset}, "
+            f"{kkt.block_offset + kkt.mask.shape[0]}), this rank's range of {N} is "
+            f"[{lo}, {min(hi, N)})"
+        )
+    kkt = pad(kkt, hi - lo)
+    if N % axis.size and kkt.assembly == "chain":
+        kkt = dataclasses.replace(kkt, assembly="scatter")
+    return kkt, lo, hi
+
+
+def require_whole(kkt, solver):
+    """A serial solver's guard: a rank-local KKT (an interface with a mesh)
+    needs a solver that runs over the same mesh."""
+    if getattr(kkt, "global_blocks", None) is not None:
+        raise ValueError(
+            f"{type(solver).__name__} got one rank's part of a KKT (its interface was built "
+            "with mesh=): solve it with ShardedSchurComplementSolver, "
+            "ShardedBandedSchurComplementSolver or PCGSchurComplementSolver(mesh=...) over "
+            "the same mesh"
+        )
 
 
 def _inertia_status(d: torch.Tensor, nk: int, mask: torch.Tensor):
@@ -575,6 +629,7 @@ class SchurComplementSolver(LinearSolver):
         return LinearSolverResults(status=LinearSolverStatus.successful)
 
     def numeric(self, kkt) -> SchurFactor:
+        require_whole(kkt, self)
         self.n_numeric += 1
         return self._numeric(kkt, 0, kkt.diag.shape[0])
 
@@ -660,6 +715,7 @@ class SchurComplementSolver(LinearSolver):
             nc=nc,
             assembly=assembly,
             group_offset=lo,
+            global_blocks=kkt.global_blocks if local else None,
         )
 
     def _apply_blocks(self, fact: SchurFactor, b, hi: bool = False):

@@ -4,9 +4,10 @@
 The JAX package shards the block axis of the KKT over a mesh axis inside
 ``shard_map``; the port runs the same decomposition as SPMD ranks:
 
-- rank r of P owns the contiguous global blocks [r N/P, (r + 1) N/P) of the
-  KKT padded to a multiple of P blocks (``pad_block_count``: masked
-  identity blocks), factors only those, and keeps only their factors;
+- rank r of P owns the contiguous global blocks of
+  ``BlockAxis.local_range`` (ceil(N/P) each) of the KKT padded to a
+  multiple of P blocks (``pad_block_count``: masked identity blocks),
+  factors only those, and keeps only their factors;
 - the Schur-complement contributions, the coupling part of every solve and
   refinement probe, the inertia and the status are all-reduced over the
   mesh's process group (``psum`` / ``pmax`` in the JAX package); in tile
@@ -16,6 +17,11 @@ The JAX package shards the block axis of the KKT over a mesh axis inside
   reference's MPI solver does;
 - ``solve`` returns the full, replicated solution: each rank's block rows
   are gathered by an all-reduce of zero-filled tensors, which is exact.
+
+The KKT and rhs may be whole (the same on every rank; the solver takes
+its rank's blocks) or rank-local: an interface built with the same mesh
+evaluates and assembles only the rank's blocks, and hands a KKT with
+``global_blocks`` set and an rhs of the rank's block rows.
 
 Every value a branch of the driver reads (inertia, status, the refinement
 probe's flag) is all-reduced, so every rank takes every branch the same way.
@@ -30,6 +36,7 @@ from parapint_tpu_torch.linalg.schur import (
     SchurComplementSolver,
     SchurFactor,
     pad_block_count,
+    shard_kkt,
 )
 from parapint_tpu_torch.parallel.mesh import BlockAxis
 
@@ -42,9 +49,12 @@ class ShardedSchurComplementSolver(SchurComplementSolver):
     this rank; ``axis_name``: its axis.  The other parameters are those of
     :class:`SchurComplementSolver`, without the bf16 auto-gate (the JAX
     sharded solver has none).  The KKT passed to ``numeric`` and the rhs
-    passed to ``solve`` are the full ones, the same on every rank; the
-    factor holds this rank's blocks and ``n_numeric`` / ``n_solves`` count
-    this rank's work.  The factorization is the serial solver's, run over
+    passed to ``solve`` are either the full ones, the same on every rank, or
+    this rank's part (from an interface built with the same mesh: a KKT
+    with ``global_blocks`` set, its block range that of
+    ``BlockAxis.local_range``, and the rhs rows of those blocks); the solve
+    returns the full solution either way.  The factor holds this rank's
+    blocks and ``n_numeric`` / ``n_solves`` count this rank's work.  The factorization is the serial solver's, run over
     this rank's blocks (``SchurComplementSolver._numeric``); so
     ``apply_dtype`` also casts a packed-LDL^T factor
     (``explicit_inverse=False``), as the serial solvers do (the JAX sharded
@@ -77,10 +87,9 @@ class ShardedSchurComplementSolver(SchurComplementSolver):
 
     def numeric(self, kkt) -> SchurFactor:
         self.n_numeric += 1
-        # any block count: pad with masked identity blocks to a multiple of
+        # any block count: masked identity blocks pad it to a multiple of
         # the rank count
-        kkt = pad_block_count(kkt, self.n_shards)
-        return self._numeric(kkt, *self.axis.local_range(kkt.diag.shape[0]))
+        return self._numeric(*shard_kkt(kkt, self.axis, pad_block_count))
 
     def _solve_refined(self, fact: SchurFactor, rhs: BlockRhs):
         """(full replicated solution, refined_ok): this rank's rows of the
@@ -89,8 +98,10 @@ class ShardedSchurComplementSolver(SchurComplementSolver):
         gathered from every rank."""
         n_local = (fact.block_W if fact.block_W is not None else fact.block_LD).shape[0]
         nb = n_local * self.n_shards
-        local = BlockRhs(self.axis.local_rows(rhs.blocks, nb), rhs.coupling)
+        rank_local = fact.global_blocks is not None
+        n = fact.global_blocks if rank_local else rhs.blocks.shape[0]
+        local = BlockRhs(self.axis.local_rows(rhs.blocks, nb, rank_local), rhs.coupling)
         x, ok = super()._solve_refined(fact, local)
         with record_function("sc_solver.communicate"):
-            xb = self.axis.gather_blocks(x.blocks, nb)[: rhs.blocks.shape[0]]
+            xb = self.axis.gather_blocks(x.blocks, nb)[:n]
         return BlockRhs(blocks=xb, coupling=x.coupling), ok

@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code.
 
-Each ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into a plain
-C-ABI shared library under ``parapint_tpu_torch/_build/`` (gitignored), keyed
-by a hash of the source and the flags, and loaded with ``ctypes``.  A fresh
-checkout therefore builds a kernel at its first use; :func:`build_all`
-compiles several sources at once (one ``nvcc`` each, started together).
+Each ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a``, and each
+``csrc/*.cpp`` file (the host Bunch-Kaufman factorization) with ``g++``,
+into a plain C-ABI shared library under ``parapint_tpu_torch/_build/``
+(gitignored), keyed by a hash of the source and the flags, and loaded with
+``ctypes``.  A fresh checkout therefore builds a library at its first use;
+:func:`build_all` compiles several sources at once (one compiler process
+each, started together).
 """
 
 import ctypes
@@ -23,6 +25,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+# the JAX package's flags for the same host source (parapint_tpu/native)
+GXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC"]
 
 _libs: Dict[Path, ctypes.CDLL] = {}
 # compiler output of each build that actually compiled (absent when the
@@ -43,14 +47,22 @@ def nvcc() -> str:
     return found
 
 
+def _compiler(source: Path):
+    """(compiler, flags) for ``source``: nvcc for ``.cu``, g++ otherwise."""
+    if source.suffix == ".cu":
+        return nvcc(), NVCC_FLAGS
+    return "g++", GXX_FLAGS
+
+
 def library_path(source: Path) -> Path:
     """Where the library built from ``source`` lives (hash of source + flags)."""
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS if source.suffix == ".cu" else GXX_FLAGS
+    key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{key}.so"
 
 
 def _start(source: Path):
-    """Start nvcc for ``source`` unless its library exists; returns
+    """Start the compiler for ``source`` unless its library exists; returns
     (out, tmp, process) or None."""
     out = library_path(source)
     if out.exists():
@@ -58,7 +70,8 @@ def _start(source: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    compiler, flags = _compiler(source)
+    cmd = [compiler, *flags, "-o", tmp, str(source)]
     return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -69,7 +82,7 @@ def _finish(source: Path, started) -> Path:
     try:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"{proc.args[0]} failed on {source.name} ({proc.returncode}):\n{log}")
         # written under a temporary name and renamed, so concurrent first
         # uses never load a half-written file
         os.replace(tmp, out)
@@ -92,15 +105,16 @@ def build_all(sources: Iterable[Path]) -> Dict[str, Path]:
     return {s.name: _finish(s, st) for s, st in zip(sources, started)}
 
 
-def load(source: Path, signatures: Optional[dict] = None) -> ctypes.CDLL:
+def load(source: Path, signatures: Optional[dict] = None, restype=ctypes.c_int) -> ctypes.CDLL:
     """The loaded library of ``source`` (built on first use).  ``signatures``
-    maps a C function name to its argtypes; every function returns int."""
+    maps a C function name to its argtypes; every function returns
+    ``restype``."""
     lib = _libs.get(source)
     if lib is None:
         lib = ctypes.CDLL(str(build(source)))
         for name, argtypes in (signatures or {}).items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype
         _libs[source] = lib
     return lib

@@ -24,9 +24,9 @@ The backend follows the device: "nccl" for CUDA, "gloo" for the CPU.  Two
 ranks that share one card must pass ``backend="gloo"``: NCCL refuses two
 ranks on one device, and gloo reduces CUDA tensors through host memory.
 
-The iterate is replicated on every rank (every rank evaluates the same
-model), so the JAX package's ``replicated_to_global`` has no counterpart:
-only the linear algebra is split over the ranks.
+The iterate is whole on every rank (an interface built with ``mesh=``
+evaluates only the rank's blocks and gathers what the step reads), so the
+JAX package's ``replicated_to_global`` has no counterpart.
 """
 
 import datetime

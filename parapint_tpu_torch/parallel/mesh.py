@@ -4,14 +4,17 @@
 The framework's one parallel axis is the block axis (time blocks or
 scenarios).  A mesh is a 1-D ``torch.distributed.device_mesh.DeviceMesh``
 named ``("blocks",)`` over ranks of the default process group, PyTorch's
-own counterpart of ``jax.sharding.Mesh``.  The sharded solvers read the
-axis through :class:`BlockAxis`: rank r of P owns the contiguous blocks
-[r N/P, (r + 1) N/P) of a block count N padded to a multiple of P, and
-``jax.lax.psum`` / ``pmax`` become :func:`all_reduce_sum` /
-:func:`all_reduce_max` over the axis's process group.
+own counterpart of ``jax.sharding.Mesh``.  The sharded solvers and the
+structured interfaces with ``mesh=`` read the axis through
+:class:`BlockAxis`: rank r of P owns the contiguous blocks of
+:meth:`BlockAxis.local_range`, ceil(N/P) of a block count N padded to a
+multiple of P, and ``jax.lax.psum`` / ``pmax`` become
+:func:`all_reduce_sum` / :func:`all_reduce_max` over the axis's process
+group.
 """
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -85,9 +88,11 @@ class BlockAxis:
         )
 
     def local_range(self, n_blocks: int):
-        """(lo, hi) of this rank's blocks; ``n_blocks`` is a multiple of the
-        axis size."""
-        n_local = n_blocks // self.size
+        """(lo, hi) of this rank's blocks in ``n_blocks`` padded to a multiple
+        of the axis size (``pad_block_count``): ceil(N/P) blocks per rank.
+        The sharded solvers and an interface with a mesh share this range;
+        on the last ranks it may reach past N (their padding)."""
+        n_local = -(-n_blocks // self.size)
         return self.index * n_local, (self.index + 1) * n_local
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -96,20 +101,43 @@ class BlockAxis:
     def max(self, t: torch.Tensor) -> torch.Tensor:
         return all_reduce_max(t, self.group)
 
-    def local_rows(self, full: torch.Tensor, n_blocks: int) -> torch.Tensor:
-        """This rank's rows of ``full`` (N, ...) zero-padded to ``n_blocks``
-        rows (a multiple of the axis size)."""
-        if full.shape[0] != n_blocks:
-            pad = full.new_zeros((n_blocks - full.shape[0], *full.shape[1:]))
-            full = torch.cat([full, pad])
+    def local_rows(self, blocks: torch.Tensor, n_blocks: int, rank_local: bool = False) -> torch.Tensor:
+        """This rank's rows of a block tensor, zero-padded to its share of
+        ``n_blocks`` (a multiple of the axis size): ``blocks`` is the whole
+        (N, ...) tensor, or with ``rank_local`` only this rank's rows."""
         lo, hi = self.local_range(n_blocks)
-        return full[lo:hi]
+        if not rank_local:
+            blocks = blocks[lo:hi]
+        if blocks.shape[0] != hi - lo:
+            pad = blocks.new_zeros((hi - lo - blocks.shape[0], *blocks.shape[1:]))
+            blocks = torch.cat([blocks, pad])
+        return blocks
+
+    def gather_rows(self, tensors, n_blocks: int):
+        """The (n_blocks, ...) tensors of which this rank holds the rows
+        [lo, lo + len) in each of ``tensors``, replicated on every rank, in
+        ONE all-reduce: each rank fills its rows of zero tensors and the
+        ranks sum them, which is exact (x + 0 = x) and runs on every
+        backend.  ``n_blocks`` is the padded count or the true N (a rank's
+        rows never pass N then)."""
+        lo, _ = self.local_range(n_blocks)
+        dt = tensors[0].dtype
+        for t in tensors[1:]:
+            dt = torch.promote_types(dt, t.dtype)
+        flat = []
+        for t in tensors:
+            full = t.new_zeros((n_blocks, *t.shape[1:]), dtype=dt)
+            full[lo : lo + t.shape[0]] = t
+            flat.append(full.reshape(-1))
+        summed = self.sum(torch.cat(flat))
+        out, start = [], 0
+        for t in tensors:
+            size = n_blocks * math.prod(t.shape[1:])
+            out.append(summed[start : start + size].reshape(n_blocks, *t.shape[1:]).to(t.dtype))
+            start += size
+        return out
 
     def gather_blocks(self, local: torch.Tensor, n_blocks: int) -> torch.Tensor:
-        """The (n_blocks, ...) tensor of every rank's block rows, replicated:
-        each rank fills its own rows of a zero tensor and the ranks sum them,
-        which is exact and runs on every backend."""
-        lo, hi = self.local_range(n_blocks)
-        full = local.new_zeros((n_blocks, *local.shape[1:]))
-        full[lo:hi] = local
-        return self.sum(full)
+        """The (n_blocks, ...) tensor of every rank's block rows, replicated
+        (:meth:`gather_rows` of one tensor)."""
+        return self.gather_rows([local], n_blocks)[0]

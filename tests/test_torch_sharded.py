@@ -43,6 +43,14 @@ Cases and their references (tolerances are the JAX package's own tests'):
   on the harness's KKT); ``PCGSchurComplementSolver`` with a mesh on the 8-block
   KKT and ``CondensedLSQSolver`` with a mesh on 5 blocks (padded): 1e-9
   relative of the JAX package's with a mesh;
+- the interfaces with mesh= (each rank evaluates the model and assembles
+  the KKT for its own blocks only): the four Burgers cases through the
+  fused driver, against the JAX references above and the same rank's
+  replicated-iterate run (MESH_ATOL); ``ip_solve`` and PCG with a mesh
+  against their replicated-iterate runs; the flagship as two kinds and the
+  QP with its ownership map against the port's serial solves
+  (SERIAL_RTOL); each rank's model calls counted on its own blocks;
+- a mesh= interface handed a serial solver raises (one rank in process);
 - every array a rank wrote, but the per-rank ones, is bitwise equal on all
   ranks.
 
@@ -76,6 +84,11 @@ PSC_SUBMESH = dict(HARNESS, n_blocks=3)
 CONDENSED = dict(n_blocks=5, n_q_per_block=32, n_y_multiplier=2, n_theta=5)
 TOL = 1e-8
 OBJ_REL_GAP = 1e-6
+# an interface with mesh= against the same rank's replicated-iterate run
+# (the JAX package's sharded-vs-serial test, tests/test_dynamic.py:137-147)
+MESH_ATOL = 1e-10
+# against the port's serial solver (another factorization order)
+SERIAL_RTOL = 1e-6
 
 
 def make_system(N=4, nk=12, nc=5, seed=0):
@@ -134,6 +147,28 @@ def burgers_solver(pkg, mesh, case, ns, f32=None):
     )
 
 
+def _count_blocks(iface) -> set:
+    """The block counts of every batched model call the interface makes
+    from now on (its model functions wrapped)."""
+    import dataclasses
+
+    seen = set()
+    fns = iface._view.fns
+
+    class Counting:
+        def __getattr__(self, name):
+            fn = getattr(fns, name)
+
+            def call(x, *args):
+                seen.add(x.shape[0])
+                return fn(x, *args)
+
+            return call
+
+    iface._view = dataclasses.replace(iface._view, fns=Counting())
+    return seen
+
+
 # -- rank side: torch, numpy and the port only -------------------------------
 
 
@@ -146,12 +181,37 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
     from parapint_tpu_torch.linalg.schur import BlockKKT, BlockRhs, LocalBlockKKT
     from parapint_tpu_torch.parallel import distributed
 
+    import chip_smoke
+    from parapint_tpu_torch.utils.timer import HierarchicalTimer
+
     workdir = Path(workdir)
     distributed.initialize(f"tcp://127.0.0.1:{port}", world, rank, device_type="cpu")
     mesh = distributed.global_mesh("blocks")
     inputs = dict(np.load(workdir / "inputs.npz"))
     t = torch.as_tensor
     out = {}
+
+    def mesh_solve(key, iface, solver, driver="fused"):
+        """Solve; keep status, iterations, objective and the final primals,
+        and (an interface with a mesh) the block counts of its model calls
+        and its block range, per rank."""
+        seen = _count_blocks(iface) if iface.mesh is not None else None
+        opts = ptt.IPOptions()
+        opts.tol = TOL
+        opts.linalg.solver = solver
+        if driver == "fused":
+            status, res = ptt.ip_solve_fused(iface, opts)
+            iters = res.iterations
+        else:
+            timer = HierarchicalTimer()
+            status = ptt.ip_solve(iface, opts, timer=timer)
+            iters = timer._root.children["IP solve"].children["convergence check"].count
+        primals = iface.get_state().primals
+        out[key + "/result"] = np.array([status.value, iters, float(iface.evaluate_objective())])
+        out[key + "/x"], out[key + "/c"] = primals["blocks"].numpy(), primals["coupling"].numpy()
+        if seen is not None:
+            out[f"rank/{key}/blocks"] = np.array(sorted(seen))
+            out[f"rank/{key}/range"] = np.array(iface.block_range)
 
     def keep(key, x: BlockRhs, fact=None, solver=None, status=None):
         out[key + "/xb"], out[key + "/xc"] = x.blocks.numpy(), x.coupling.numpy()
@@ -217,6 +277,34 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
             [status.value, res.iterations, float(iface.evaluate_objective())]
         )
         out[f"fused/{case}/x"] = res.state.primals["blocks"].numpy()
+        out[f"fused/{case}/c"] = res.state.primals["coupling"].numpy()
+
+    # the interfaces with mesh=: each rank evaluates the model and assembles
+    # the KKT for its own blocks only
+    for case, (form, nlp) in CASES.items():
+        iface = ptt.DynamicSchurComplementInteriorPointInterface(
+            burgers.build_spec(**NLPS[nlp], device="cpu"), mesh=mesh, kkt_dtype=torch.float32,
+            block_form=form,
+        )
+        mesh_solve(f"mesh/{case}", iface, burgers_solver(ptt, mesh, case, iface.ns, torch.float32))
+    for use_mesh in (True, False):
+        iface = ptt.DynamicSchurComplementInteriorPointInterface(
+            burgers.build_spec(**NLPS[8], device="cpu"), mesh=mesh if use_mesh else None,
+            kkt_dtype=torch.float32,
+        )
+        key = "mesh/ip_solve" if use_mesh else "ip_solve"
+        mesh_solve(key, iface, burgers_solver(ptt, mesh, "dense8", iface.ns, torch.float32),
+                   driver="ip_solve")
+        pcg = ptt.PCGSchurComplementSolver(mesh, "blocks", block_size=128, factor_dtype=torch.float32)
+        mesh_solve("mesh/pcg" if use_mesh else "pcg_fused", iface, pcg)
+    # the flagship as two kinds: kind 0 holds block 0, kind 1 the others
+    spec = burgers.build_spec(**NLPS[8], device="cpu")
+    mesh_solve("mesh/two_kinds", chip_smoke.burgers_two_kinds(spec, torch.float32, mesh=mesh),
+               burgers_solver(ptt, mesh, "dense8", spec.num_states, torch.float32))
+    mesh_solve("two_kinds_serial", chip_smoke.burgers_two_kinds(spec, torch.float32),
+               ptt.SchurComplementSolver(block_size=128, explicit_inverse=True,
+                                         factor_dtype=torch.float32,
+                                         schur_complement_solver=ptt.BlockTridiagSolver()))
 
     # the stochastic QP with a non-trivial ownership map
     own = OWNERSHIP[world]
@@ -230,7 +318,9 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
         mesh, "blocks", block_size=128, explicit_inverse=True, factor_dtype=torch.float64,
         apply_dtype=torch.float32,
     )
+    seen = _count_blocks(iface)
     status, res = ptt.ip_solve_fused(iface, opts)
+    out["rank/qp/blocks"], out["rank/qp/range"] = np.array(sorted(seen)), np.array(iface.block_range)
     out["qp/result"] = np.array([status.value, res.iterations, float(iface.evaluate_objective())])
     n_sc = QP_SMALL["n_scenarios"]
     out["qp/block_primals"] = np.stack([iface.get_block_primals(i).numpy() for i in range(n_sc)])
@@ -240,6 +330,15 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
     out["qp/lam"] = iface.get_duals_nonanticipativity().numpy()
     out["qp/raw_lam"] = iface._current_state.duals_eq["link"].numpy()
     out["qp/first_stage"] = iface.get_first_stage_values().numpy()
+    serial = ptt.StochasticSchurComplementInteriorPointInterface(
+        stochastic.qp_spec(**QP_SMALL, device="cpu"), kkt_dtype=torch.float32)
+    opts.linalg.solver = ptt.SchurComplementSolver(
+        block_size=128, explicit_inverse=True, factor_dtype=torch.float64, apply_dtype=torch.float32,
+    )
+    status, res = ptt.ip_solve_fused(serial, opts)
+    out["qp_serial/result"] = np.array([status.value, res.iterations, float(serial.evaluate_objective())])
+    out["qp_serial/primals"] = serial.get_primals()["blocks"].numpy()
+    out["qp_serial/first_stage"] = serial.get_first_stage_values().numpy()
     raised = {}
     for key, bad in (("same number", [0] * n_sc), ("must be in", [world] * n_sc)):
         try:
@@ -654,6 +753,98 @@ def test_ranks_agree_bit_for_bit(sharded):
         for key, a in ranks[0].items():
             if not key.startswith("rank/"):
                 assert np.array_equal(a, other[key]), f"rank {r} differs at {key}"
+
+
+def _result(out, key):
+    status, iters, obj = out[key + "/result"]
+    return int(status), int(iters), float(obj)
+
+
+def _own_blocks_only(ranks, key, N):
+    """Invariant (b): every model call of rank r ran on its own blocks, the
+    range of BlockAxis.local_range: ceil(N/P) blocks, fewer on the last."""
+    P = len(ranks)
+    n_local = -(-N // P)
+    for r, out in enumerate(ranks):
+        lo, hi = r * n_local, min((r + 1) * n_local, N)
+        np.testing.assert_array_equal(out[f"rank/{key}/range"], [lo, hi])
+        np.testing.assert_array_equal(out[f"rank/{key}/blocks"], [hi - lo])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_mesh_interface_matches_jax(sharded, case):
+    """An interface with mesh=: the JAX sharded run's status, iterations
+    (within 1) and objective (1e-6), the same rank's replicated-iterate run
+    within MESH_ATOL at equal iterations, and each rank's
+    model evaluated on its own blocks only."""
+    P, ranks, _, shared = sharded
+    out = ranks[0]
+    status, iters, obj = _result(out, f"mesh/{case}")
+    j_status, j_iters, j_obj = shared[CASES[case][1]]
+    r_status, r_iters, _ = _result(out, f"fused/{case}")
+    print(f"mesh= {case} on {P} ranks: iterations {iters} (JAX {j_iters}, replicated {r_iters}), "
+          f"objective {obj!r} (JAX {j_obj!r})")
+    assert status == j_status == r_status == 0
+    assert abs(iters - j_iters) <= 1 and iters == r_iters
+    assert abs(obj - j_obj) <= OBJ_REL_GAP * max(1.0, abs(j_obj))
+    _close(out[f"mesh/{case}/x"], out[f"fused/{case}/x"], MESH_ATOL)
+    _close(out[f"mesh/{case}/c"], out[f"fused/{case}/c"], MESH_ATOL)
+    _own_blocks_only(ranks, f"mesh/{case}", CASES[case][1])
+
+
+@pytest.mark.parametrize("case", ["ip_solve", "pcg", "two_kinds", "qp"])
+def test_mesh_interface_other_paths(sharded, case):
+    """``ip_solve`` (dense, 8 blocks) and PCG with a mesh on a mesh=
+    interface against the same rank's replicated-iterate run; the flagship
+    as two kinds (``HeterogeneousDynamicInterface``) and the QP with an
+    ownership map against the port's serial solve (original scenario
+    order).  Same status and iterations, objective within 1e-6 of the JAX
+    reference, the primals within MESH_ATOL (replicated) or SERIAL_RTOL
+    (serial), each rank's model on its own blocks only."""
+    P, ranks, _, shared = sharded
+    out = ranks[0]
+    ref_key = {"ip_solve": "ip_solve", "pcg": "pcg_fused", "two_kinds": "two_kinds_serial",
+               "qp": "qp_serial"}[case]
+    key = "qp" if case == "qp" else f"mesh/{case}"
+    status, iters, obj = _result(out, key)
+    r_status, r_iters, r_obj = _result(out, ref_key)
+    j_obj = shared["qp"][2] if case == "qp" else shared[8][2]
+    print(f"mesh= {case} on {P} ranks: iterations {iters} ({ref_key} {r_iters}), objective "
+          f"{obj!r} ({ref_key} {r_obj!r}, JAX {j_obj!r})")
+    assert status == r_status == 0 and iters == r_iters
+    assert abs(obj - j_obj) <= OBJ_REL_GAP * max(1.0, abs(j_obj))
+    if case == "qp":
+        _close(out["qp/block_primals"], out["qp_serial/primals"], SERIAL_RTOL, rel=True)
+        _close(out["qp/first_stage"], out["qp_serial/first_stage"], SERIAL_RTOL, rel=True)
+        _own_blocks_only(ranks, "qp", QP_SMALL["n_scenarios"])
+        return
+    tol, rel = (SERIAL_RTOL, True) if case == "two_kinds" else (MESH_ATOL, False)
+    _close(out[key + "/x"], out[ref_key + "/x"], tol, rel)
+    _close(out[key + "/c"], out[ref_key + "/c"], tol, rel)
+    _own_blocks_only(ranks, key, NLPS[8]["num_time_blocks"])
+
+
+def test_mesh_interface_needs_a_mesh_solver():
+    """A mesh= interface hands its rank's part of the KKT: a serial solver
+    refuses it, naming the solvers it needs (one gloo rank in process)."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import burgers
+    from parapint_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0, device_type="cpu")
+    try:
+        mesh = distributed.global_mesh("blocks")
+        spec = burgers.build_spec(nfe_x=4, nfe_t=4, num_time_blocks=2, device="cpu")
+        for form, solver in (("dense", ptt.SchurComplementSolver(block_size=8)),
+                             ("banded", ptt.BandedSchurComplementSolver()),
+                             ("dense", ptt.PCGSchurComplementSolver(block_size=8))):
+            iface = ptt.DynamicSchurComplementInteriorPointInterface(spec, mesh=mesh, block_form=form)
+            opts = ptt.IPOptions()
+            opts.linalg.solver = solver
+            with pytest.raises(ValueError, match="ShardedSchurComplementSolver"):
+                ptt.ip_solve_fused(iface, opts)
+    finally:
+        distributed.shutdown()
 
 
 @pytest.mark.cuda
