@@ -8,8 +8,10 @@ through ``ip_solve``; the matrix-free PCG coupling solver; the
 condensed least-squares solver of the performance harness at the
 reference's default scale; the sharded (multi-rank) solvers over
 ``torch.distributed``, with the interfaces' ``mesh=`` (each rank evaluates
-and assembles its own blocks); the host ``HostBKSolver``; and the
-reference-name layer ``parapint_tpu_torch.compat``.
+and assembles its own blocks); the host ``HostBKSolver``; the
+reference-name layer ``parapint_tpu_torch.compat``; and the bench tools
+``parapint_tpu_torch.tools.bench`` and ``bench_all`` with their twelve
+rows.
 
     python3 chip_smoke.py
 
@@ -139,6 +141,21 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 19. compat         — the reference-style call site of ``tests/test_compat.py``
                      through ``parapint_tpu_torch.compat`` on the card:
                      optimal at the JAX ``compat`` run's objective.
+20. bench          — ``python -m parapint_tpu_torch.tools.bench`` as a child,
+                     5 times: each line's ``n_iter`` within 1 of the JAX 6,
+                     ``value`` and ``vs_baseline`` > 0, ``backend`` "cuda" and
+                     the card's line, the scipy baseline's child without a
+                     card; then the median and spread of ``value``.
+21. bench_all      — the six rows of ``tools/bench_all.py`` that no phase
+                     above runs (4 and 8 blocks with the dense SC, the three
+                     256-block rows, nfe_x=200 banded), in this process
+                     through the tool's row factory, counted: optimal at the
+                     JAX objective and iterations, the launches per numeric
+                     and back solve of ``BENCH_NEW_ROWS``; then the whole
+                     tool (twelve rows, each a child of its own) as one
+                     child: exit 0, every row without an error and at its
+                     JAX iterations, the condensed row's max_err at the JAX
+                     package's (1e-6 relative).
 
 Every measurement line carries the card's name and power limit; kernel
 times are medians of CUDA-event windows (``tools/kernel_lab.py::timed_loop``).
@@ -152,6 +169,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -362,6 +380,73 @@ SHARDED_TIMEOUT = 600  # seconds for the two ranks to run every case
 #   x = np.asarray(iface.get_primals()); print(repr(float(x[0] ** 2 + x[1] ** 2)))
 #   # -> InteriorPointStatus.optimal 0.6080367853394799
 COMPAT_JAX_OBJECTIVE = 0.6080367853394799
+# JAX package's results for bench_all's rows that no phase above runs, on
+# the CPU (JAX_PLATFORMS=cpu, from the repository root), each row's
+# interface and solver as bench_all.py builds them:
+#   import jax.numpy as jnp, parapint_tpu as pt
+#   from parapint_tpu.examples import burgers
+#   fast = dict(block_size=128, explicit_inverse=True, factor_dtype=jnp.float32, refine_steps=0)
+#   def burgers_if(nfe_x, nfe_t, n, **kw):
+#       return pt.DynamicSchurComplementInteriorPointInterface(burgers.build_spec(
+#           nfe_x=nfe_x, nfe_t=nfe_t, num_time_blocks=n), kkt_dtype=jnp.float32, **kw)
+#   def run(iface, solver):
+#       opts = pt.IPOptions(); opts.tol = 1e-8; opts.linalg.solver = solver
+#       status, res = pt.ip_solve_fused(iface, opts)
+#       print(status, int(res.iterations), repr(float(iface.evaluate_objective())))
+#   run(burgers_if(50, 16, 4), pt.SchurComplementSolver(**fast))
+#   # -> optimal 6 0.047884242255387344
+#   run(burgers_if(50, 32, 8), pt.SchurComplementSolver(**fast))
+#   # -> optimal 6 0.047561186977296575
+#   iface = burgers_if(50, 512, 256, block_form="banded")
+#   run(iface, pt.BandedSchurComplementSolver(tile_size=128,
+#       schur_complement_solver=pt.BlockTridiagSolver(ns=iface.ns)))
+#   # -> optimal 7 0.047570960140467966
+#   run(burgers_if(50, 512, 256), pt.SchurComplementSolver(
+#       schur_complement_solver=pt.BlockTridiagSolver(), **fast))
+#   # -> optimal 10 0.047570960140498296
+#   run(burgers_if(50, 512, 256), pt.SchurComplementSolver(**fast))
+#   # -> no result: XLA's CPU compile of the fused solve ran 28 minutes and
+#   #    aborted ("LLVM ERROR: Unable to allocate section memory"), so the
+#   #    row is held to status optimal and the 256-block objective
+#   run(burgers_if(200, 256, 64, block_form="banded"), pt.BandedSchurComplementSolver(
+#       schur_complement_solver=pt.BlockTridiagSolver(), factor_dtype=jnp.float32))
+#   # -> optimal 8 0.04724632409564694
+BURGERS256_JAX_OBJECTIVE = 0.047570960140498296  # one NLP for the three 256-block rows
+# row -> (JAX objective, JAX iterations or None where the JAX run did not
+# finish, kernel launches per numeric, K6 launches per back solve).  Dense
+# blocks: K1 on ceil(nk / 128) panels of 128, the coupling on K1 per
+# cyclic-reduction level (tiles of ns padded to a multiple of 8) or on K5
+# per 128 columns of the dense SC; banded blocks: K1 on two 64-wide panels
+# per tile of the Thomas sweep, no K6.
+BENCH_NEW_ROWS = {
+    # nk 922 -> 8 x 128; ncv 147 -> 2 x 128
+    "burgers_serial_4blocks": (0.047884242255387344, 6, dict(K1=8, K5=2), 2),
+    # ncv 343 -> 3 x 128
+    "burgers_ssc_8blocks": (0.047561186977296575, 6, dict(K1=8, K5=3), 2),
+    # nk 612 -> 5 x 128, 8 levels at (E, 56, 56), E = 128 ... 1
+    "burgers_256blocks_cr": (BURGERS256_JAX_OBJECTIVE, 10, dict(K1=13), 2),
+    # 5 tiles x 2 panels + 8 levels
+    "burgers_256blocks_banded_cr": (BURGERS256_JAX_OBJECTIVE, 7, dict(K1=18), 0),
+    # ncv 12,495 -> 98 x 128
+    "burgers_256blocks_dense_sc": (BURGERS256_JAX_OBJECTIVE, None, dict(K1=5, K5=98), 2),
+    # p 84: 44 tiles (3622 -> 3696 = 44 x 84), each 84 -> 128 as two
+    # 64-wide panels, + 6 levels x 4 panels (ns 199 -> 256 = 4 x 64, the
+    # cyclic reduction's panel width)
+    "burgers_banded_nfex200_64blocks": (0.04724632409564694, 8, dict(K1=112), 0),
+}
+BENCH_ALL_JAX_ITERATIONS = dict(
+    {name: row[1] for name, row in BENCH_NEW_ROWS.items()},
+    stochastic_32scenarios=FARMER32_JAX_ITERATIONS,
+    stochastic_qp_32scenarios_1k=QP_JAX_ITERATIONS,
+    burgers_pcg_coupling_8blocks=PCG_JAX_ITERATIONS,
+    burgers_64blocks_cr=JAX_DENSE_ITERATIONS,
+    burgers_64blocks_banded_cr=JAX_ITERATIONS,
+)
+BENCH_RUNS = 5  # runs of the bench tool, for the spread of its value
+BENCH_TIMEOUT = 300  # seconds for one run of the bench tool
+BENCH_ROW_TIMEOUT = 240  # bench_all's --timeout per row
+BENCH_ALL_TIMEOUT = 900  # seconds for the whole bench_all child
+CSC_MAX_ERR_RTOL = 1e-6
 
 # Panel kernels: kernel and plain version run the same float32 operations in
 # the same order per entry (each product rounded before its subtraction, no
@@ -1758,17 +1843,137 @@ def phase_sharded_two_ranks(outdir):
     return [r["counts"] for r in ranks]
 
 
+def _run_tool(args, timeout):
+    """``python -m <args>`` from the repository root in a new process group,
+    killed with its children when it ends or runs out of time; returns
+    (exit code, standard output lines, standard error)."""
+    proc = subprocess.Popen([sys.executable, "-m", *args],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    return proc.returncode, out.strip().splitlines(), err
+
+
+def phase_bench():
+    """``python -m parapint_tpu_torch.tools.bench`` as a child, BENCH_RUNS
+    times: each run's flagship line at the JAX iterations, on the card, its
+    baseline from a child that saw no card; then the median and spread of
+    the value."""
+    values, lines = [], []
+    for run in range(BENCH_RUNS):
+        t0 = time.perf_counter()
+        rc, out, err = _run_tool(["parapint_tpu_torch.tools.bench"], BENCH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"bench run {run}: exit {rc}\n{err[-3000:]}")
+        line = json.loads(out[-1])
+        d = line["detail"]
+        print(f"bench run {run} ({wall:.1f} s): {out[-1]}")
+        if abs(d["n_iter"] - JAX_ITERATIONS) > 1:
+            raise AssertionError(f"bench: {d['n_iter']} iterations, JAX {JAX_ITERATIONS}")
+        if not (line["value"] > 0 and line["vs_baseline"] > 0):
+            raise AssertionError(f"bench: value {line['value']}, vs_baseline {line['vs_baseline']}")
+        if d["backend"] != "cuda" or d["device"] != SMI or out[0] != SMI:
+            raise AssertionError(f"bench: backend {d['backend']}, device {d['device']!r}")
+        if d["baseline_saw_cuda"]:
+            raise AssertionError("bench: the baseline child saw CUDA")
+        values.append(line["value"])
+        lines.append(line)
+    med = float(np.median(values))
+    spread = max(values) - min(values)
+    say(f"bench value over {BENCH_RUNS} runs, iter/s: {values}; median {med}, spread (max-min) "
+        f"{spread} ({spread / med * 100:.2f}% of the median)")
+    return dict(values=values, median=med, spread=spread, first=lines[0])
+
+
+def phase_bench_rows():
+    """bench_all's six rows that no phase above runs, in this process
+    through the tool's row factory (every count zeroed before the counted
+    solve): optimal at the JAX objective and iterations, the launches per
+    numeric and per back solve of BENCH_NEW_ROWS; then the whole tool (all
+    twelve rows, each in its own child) as one child: every row without an
+    error, at its JAX iterations, and the condensed row at the JAX max_err."""
+    from parapint_tpu_torch.tools import bench_all
+
+    rows = {}
+    for name, (obj, iters, per_numeric, k6_per_solve) in BENCH_NEW_ROWS.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        iface, solver = bench_all.make_row(name)
+        plan = getattr(iface, "banded_plan", None)
+        print(f"{name}: nk {iface.nk} ns {iface.ns} ncv {iface.ncv}"
+              f"{f' p {plan.p}' if plan is not None else ''} setup {time.perf_counter() - t0:.2f} s")
+        _, c = _counted_solve(iface, solver, name, ref=obj)
+        c["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        say(f"{name}: iterations {c['iterations']} (JAX {iters}), peak device memory "
+            f"{c['peak_mib']:.1f} MiB")
+        if iters is not None and abs(c["iterations"] - iters) > 1:
+            raise AssertionError(f"{name}: {c['iterations']} iterations, JAX {iters}")
+        for k in ("K1", "K2", "K3", "K4", "K5"):
+            if c[k] != per_numeric.get(k, 0) * c["numerics"]:
+                raise AssertionError(f"{name}: {k} {c[k]} launches for {c['numerics']} numerics, "
+                                     f"expected {per_numeric.get(k, 0)} per numeric")
+        if c["K6"] != k6_per_solve * (c["solves"] or 0):  # the banded solver counts no solves
+            raise AssertionError(f"{name}: K6 {c['K6']} launches for {c['solves']} back solves")
+        rows[name] = c
+        del iface, solver
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc, out, err = _run_tool(["parapint_tpu_torch.tools.bench_all", "--timeout",
+                              str(BENCH_ROW_TIMEOUT)], BENCH_ALL_TIMEOUT)
+    print("\n".join(out))
+    say(f"bench_all: exit {rc} in {time.perf_counter() - t0:.1f} s")
+    records = {r["config"]: r for r in map(json.loads, out[2:])}
+    if rc != 0 or list(records) != list(bench_all.ROWS):
+        raise AssertionError(f"bench_all: exit {rc}, rows {list(records)}\n{err[-3000:]}")
+    for name, r in records.items():
+        if "error" in r or r["device"] != SMI:
+            raise AssertionError(f"bench_all {name}: {r}")
+        if name == bench_all.CONDENSED:
+            rel = abs(r["theta_max_err"] - CSC_JAX_MAX_ERR) / CSC_JAX_MAX_ERR
+            if r["status"] != 0 or not rel <= CSC_MAX_ERR_RTOL:
+                raise AssertionError(f"bench_all {name}: status {r['status']}, max_err rel err {rel}")
+        elif (BENCH_ALL_JAX_ITERATIONS[name] is not None
+              and abs(r["n_iter"] - BENCH_ALL_JAX_ITERATIONS[name]) > 1):
+            raise AssertionError(f"bench_all {name}: {r['n_iter']} iterations, "
+                                 f"JAX {BENCH_ALL_JAX_ITERATIONS[name]}")
+    return rows, records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
 
+    # every child interpreter (the spawned ranks, the bench tools and their
+    # rows) imports torch anew; where no bytecode cache is kept
+    # (PYTHONDONTWRITEBYTECODE, or a read-only site-packages), each would
+    # compile torch's sources again, so the children share one cache in the
+    # checkout's (gitignored) build directory
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ.setdefault("PYTHONPYCACHEPREFIX", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "parapint_tpu_torch", "_build", "pycache"))
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(label):
+        now = time.perf_counter()
+        print(f"chip_smoke: {label} done at {now - t_start:.1f} s (+{now - laps[-1]:.1f} s)")
+        laps.append(now)
+
     phase_device()
     phase_build()
+    lap("build")
     err, timing = phase_kernels()
     k7_launches, timing["K7"], k7_rate = phase_kernel_lab()
     err["K7"] = 0.0
+    lap("kernels and kernel lab")
     iface = _dense_iface()
     dense = phase_dense(iface)
     dense_sc = phase_dense_sc(iface)
@@ -1776,26 +1981,39 @@ def main():
     ld, ld_LD = phase_ld(iface)
     column, column_ld = phase_column(iface, dense, ld_LD)
     phase_fixed_order(iface)
+    lap("dense flagship phases 4-8b")
     del iface, ld_LD
     torch.cuda.empty_cache()
     phase_stochastic_qp()
+    lap("stochastic QP")
     torch.cuda.empty_cache()
     phase_farmer()
     single = phase_single()
     banded = phase_banded()
+    lap("farmer, single NLP, banded")
     phase_heterogeneous()
+    lap("heterogeneous")
     torch.cuda.empty_cache()
     phase_pcg()
     phase_pcg_first_kkt(_dense_iface())
+    lap("PCG")
     torch.cuda.empty_cache()
     phase_condensed()
+    lap("condensed")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as outdir:
         sharded_one = phase_sharded_one_rank(outdir)
         torch.cuda.empty_cache()
         sharded_two = phase_sharded_two_ranks(outdir)
+        lap("sharded")
     host_bk = phase_host_bk(single)
     phase_compat()
+    lap("host BK, compat")
+    torch.cuda.empty_cache()
+    bench = phase_bench()
+    lap("bench")
+    bench_rows, bench_all_records = phase_bench_rows()
+    lap("bench_all")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     src = "parapint_tpu_torch/csrc/ldl_panel_winv.cu"
@@ -1835,6 +2053,10 @@ def main():
     print(json.dumps({"sharded": {"one_rank_nccl": sharded_one,
                                   f"{SHARDED_WORLD}_ranks_gloo": sharded_two},
                       "host_bk": host_bk}))
+    # the bench tool's runs and the bench_all rows: counts in process, then
+    # the tool's lines
+    print(json.dumps({"bench": bench, "bench_all_rows": bench_rows,
+                      "bench_all": bench_all_records}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

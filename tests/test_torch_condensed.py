@@ -19,6 +19,7 @@ Tolerances:
 
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,12 +117,12 @@ def condensed_cases():
         w = np.linalg.eigvalsh(M)
         kkt = JKKT(A_bands=jnp.asarray(A_bands), q_c=jnp.zeros((nt, nt)), n_t=nt, n_blocks=N)
         solver = JSolver(tile_size=ts)
-        fact = solver.numeric(kkt)
-        sol = solver.solve(
+        # under jax.jit, as tests/test_condensed.py runs the JAX solver
+        fact = jax.jit(solver.numeric)(kkt)
+        sol = jax.jit(lambda f, r: solver.solve(f, r, kkt=kkt))(
             fact,
             JBlockRhs(blocks=jnp.asarray(rhs[: N * nk].reshape(N, nk)),
                       coupling=jnp.asarray(rhs[N * nk :])),
-            kkt=kkt,
         )
         out[(nq, ts)] = dict(
             A_bands=A_bands, nt=nt, N=N, nk=nk, rhs=rhs, dense=np.linalg.solve(M, rhs),

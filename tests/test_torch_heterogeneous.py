@@ -13,7 +13,8 @@ the problems of tests/test_heterogeneous.py, and the two-kind Burgers at the
   flagship's solver): the uniform masked interface solves the same NLP, so
   status, objective (1e-6 relative) and iterations (within 1) agree.
 
-Each JAX reference runs once per module (module-scoped fixtures).
+Each JAX reference runs once per module (module-scoped fixtures): one JAX
+fused solve per problem serves both port drivers.
 """
 
 import sys
@@ -128,13 +129,16 @@ CASES = [(ragged, driver) for ragged in (False, True) for driver in ("ip_solve",
 
 @pytest.fixture(scope="module")
 def jax_results():
-    return {case: _run(pt, _jax_iface(case[0]), case[1], JTimer) for case in CASES}
+    """One JAX fused solve per problem, the reference of both port drivers
+    (the JAX package holds its fused driver to its Python-loop driver in
+    tests/test_fused.py)."""
+    return {ragged: _run(pt, _jax_iface(ragged), "fused", JTimer) for ragged in (False, True)}
 
 
 @pytest.mark.parametrize("ragged,driver", CASES, ids=[f"{'ragged' if r else 'two_kind'}-{d}"
                                                       for r, d in CASES])
 def test_matches_reference(jax_results, ragged, driver):
-    j_status, j_iter, j_obj, j_x = jax_results[(ragged, driver)]
+    j_status, j_iter, j_obj, j_x = jax_results[ragged]
     iface = _port_iface(ragged)
     t_status, t_iter, t_obj, t_x = _run(ptt, iface, driver, HierarchicalTimer)
     print(f"{driver}: iterations JAX {j_iter} port {t_iter}; objective JAX {j_obj!r} port {t_obj!r}")

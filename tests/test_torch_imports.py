@@ -35,7 +35,8 @@ def test_package_has_sources():
         "tools/profile_bench.py", "linalg/pcg_schur.py", "linalg/condensed.py",
         "interfaces/heterogeneous.py", "examples/performance/schur_complement.py",
         "linalg/sharded_schur.py", "parallel/__init__.py", "parallel/mesh.py",
-        "parallel/distributed.py", "compat.py", "linalg/host_bk.py",
+        "parallel/distributed.py", "compat.py", "linalg/host_bk.py", "tools/bench.py",
+        "tools/bench_all.py",
     } <= names
     for source in ("ldl_panel_winv.cu", "winv_apply.cu", "read_reduce.cu", "bk_ldl.cpp"):
         assert (PKG / "csrc" / source).exists()
@@ -64,7 +65,8 @@ def test_importing_the_port_loads_no_jax():
         "parapint_tpu_torch.examples.performance.schur_complement, "
         "parapint_tpu_torch.linalg.sharded_schur, parapint_tpu_torch.parallel.mesh, "
         "parapint_tpu_torch.parallel.distributed, parapint_tpu_torch.compat, "
-        "parapint_tpu_torch.linalg.host_bk; "
+        "parapint_tpu_torch.linalg.host_bk, parapint_tpu_torch.tools.bench, "
+        "parapint_tpu_torch.tools.bench_all; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'parapint_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -272,30 +272,50 @@ def test_interior_point_example():
     assert np.isclose(x[0], 0.0, atol=1e-7) and np.isclose(x[1], 1.0, atol=1e-7)
 
 
+def _jax_fused(iface, solver):
+    """The JAX package's fused solve of ``iface``: the reference of the
+    examples' ``main`` (``ip_solve``), whose iterate it reaches to the last
+    bit on these problems (tests/test_fused.py holds the two JAX drivers
+    together)."""
+    opts = pt.IPOptions()
+    opts.linalg.solver = solver
+    status, _ = pt.ip_solve_fused(iface, opts)
+    assert status == pt.InteriorPointStatus.optimal
+    return iface
+
+
 def test_dynamics_example_golden():
     """Reference golden p(t) (test_examples.py:10-21) within 1e-6, and the
-    JAX package's p(t) within 1e-8."""
+    JAX package's p(t) within 1e-8 (examples/dynamics.main's problem and
+    solver through the JAX fused driver)."""
     from parapint_tpu.examples import dynamics as jdyn
     from parapint_tpu_torch.examples import dynamics
 
     _, x, p = dynamics.main(device=DEV)
     for k, v in DYNAMICS_GOLDEN_P.items():
         assert np.isclose(p[k], v, atol=1e-6), (k, p[k], v)
-    _, xj, pj = jdyn.main()
-    np.testing.assert_allclose(p, pj, rtol=0, atol=1e-8)
+    n, nb = 90, 3
+    j = _jax_fused(pt.DynamicSchurComplementInteriorPointInterface(
+        jdyn.build_spec(num_finite_elements=n, num_time_blocks=nb, constant_control_duration=10)
+    ), pt.SchurComplementSolver(block_size=32))
+    xs, nfe = np.asarray(j.get_state().primals["blocks"]), n // nb
+    xj = np.concatenate([xs[0, : nfe + 1]] + [xs[i, 1 : nfe + 1] for i in range(1, nb)])
+    np.testing.assert_allclose(p, xs[:, nfe + 1 :].reshape(-1), rtol=0, atol=1e-8)
     np.testing.assert_allclose(x, xj, rtol=0, atol=1e-8)
 
 
 def test_burgers_main_matches_reference():
     """examples/burgers.main through ip_solve at the test size of
     tests/test_examples.py::test_burgers_small: the JAX package's objective
-    (relative gap 1e-6) and exact continuity across the blocks."""
+    (its ``main``'s problem and solver through the JAX fused driver;
+    relative gap 1e-6) and exact continuity across the blocks."""
     from parapint_tpu.examples import burgers as jburgers
     from parapint_tpu_torch.examples import burgers
 
     shape = dict(nfe_x=8, nfe_t=8, num_time_blocks=4)
     t = burgers.main(**shape, device=DEV)
-    j = jburgers.main(**shape)
+    j = _jax_fused(pt.DynamicSchurComplementInteriorPointInterface(jburgers.build_spec(**shape)),
+                   pt.SchurComplementSolver(block_size=128))
     t_obj, j_obj = float(t.evaluate_objective()), float(j.evaluate_objective())
     print(f"burgers.main objective JAX {j_obj!r} port {t_obj!r}")
     assert abs(t_obj - j_obj) <= 1e-6 * max(1.0, abs(j_obj))

@@ -8,7 +8,7 @@ they print are CPU times."""
 import pytest
 import torch
 
-from parapint_tpu_torch.tools import kernel_lab, profile_bench, profile_numeric
+from parapint_tpu_torch.tools import bench, bench_all, kernel_lab, profile_bench, profile_numeric
 
 torch.set_num_threads(1)
 
@@ -52,12 +52,14 @@ def test_bw_reports_each_rows_per_cta():
     assert out["shape"] == (2, 16, 16) and out["bound_ms"] > 0.0
 
 
-@pytest.mark.parametrize("tool", ["lab", "profile_numeric", "profile_bench"])
+@pytest.mark.parametrize("tool", ["lab", "profile_numeric", "profile_bench", "bench", "bench_all"])
 def test_card_device_requires_cuda(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     main = {"lab": lambda: kernel_lab.main(["bw", "--B", "2", "--n", "16"]),
             "profile_numeric": lambda: profile_numeric.main([]),
-            "profile_bench": lambda: profile_bench.main([])}[tool]
+            "profile_bench": lambda: profile_bench.main([]),
+            "bench": lambda: bench.main([]),
+            "bench_all": lambda: bench_all.main([])}[tool]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main()
 

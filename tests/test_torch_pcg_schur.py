@@ -36,7 +36,6 @@ from parapint_tpu.examples import burgers as jburgers
 from parapint_tpu.linalg.schur import BlockRhs as JBlockRhs
 from parapint_tpu.linalg.schur import LocalBlockKKT as JLocalBlockKKT
 from parapint_tpu.linalg.schur import _border_apply_local, _winv_apply_batched
-from parapint_tpu.utils.timer import HierarchicalTimer as JTimer
 from parapint_tpu_torch.convert import block_kkt_from_numpy, block_rhs_from_numpy
 from parapint_tpu_torch.examples import burgers
 from parapint_tpu_torch.linalg import pcg_schur
@@ -155,17 +154,17 @@ DRIVERS = ["fused", "ip_solve"]
 
 
 @pytest.fixture(scope="module")
-def jax_solves():
-    return {
-        d: _run(pt, pt.DynamicSchurComplementInteriorPointInterface(
-            jburgers.build_spec(**SHAPE), kkt_dtype=jnp.float32), _pcg(pt, jnp.float32), d, JTimer)
-        for d in DRIVERS
-    }
+def jax_solve():
+    """One JAX fused solve, the reference of both port drivers (at this
+    shape the JAX package's two drivers take the same iterations to the
+    same objective; tests/test_fused.py holds them together)."""
+    return _run(pt, pt.DynamicSchurComplementInteriorPointInterface(
+        jburgers.build_spec(**SHAPE), kkt_dtype=jnp.float32), _pcg(pt, jnp.float32), "fused", None)
 
 
 @pytest.mark.parametrize("driver", DRIVERS)
-def test_solve_matches_reference(jax_solves, driver):
-    j_status, j_iter, j_obj = jax_solves[driver]
+def test_solve_matches_reference(jax_solve, driver):
+    j_status, j_iter, j_obj = jax_solve
     iface = ptt.DynamicSchurComplementInteriorPointInterface(
         burgers.build_spec(**SHAPE, device="cpu"), kkt_dtype=torch.float32
     )

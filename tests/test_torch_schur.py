@@ -47,10 +47,11 @@ def _eig_inertia(M):
 
 
 def _solve_both(jsolver, tsolver, jkkt, rhs_blocks, rhs_coupling):
-    """(JAX fact, JAX x, port fact, port x) on the same system; x flattened."""
+    """(JAX fact, JAX x, port fact, port x) on the same system; x flattened.
+    The JAX solver runs under ``jax.jit``, as the JAX drivers run it."""
     jrhs = JBlockRhs(blocks=jnp.asarray(rhs_blocks), coupling=jnp.asarray(rhs_coupling))
-    jf = jsolver.numeric(jkkt)
-    jx = jsolver.solve(jf, jrhs)
+    jf = jax.jit(jsolver.numeric)(jkkt)
+    jx = jax.jit(jsolver.solve)(jf, jrhs)
     tf = tsolver.numeric(block_kkt_from_numpy(_np(jkkt), "cpu"))
     tx = tsolver.solve(tf, block_rhs_from_numpy(_np(jrhs), "cpu"))
     flat = lambda b, c: np.concatenate([np.asarray(b).reshape(-1), np.asarray(c)])

@@ -11,7 +11,8 @@ Criteria and tolerances:
   same precision by two AD engines); float32 blocks to 1e-6 relative (the
   structured tests' float32 bound); border, row indices and q exactly;
 - solves: the same status, objective relative gap <= 1e-6, iteration counts
-  within 1 of each other (both printed); farmer golden acreage within 1e-4
+  within 1 of each other (both printed); the QP's one JAX fused solve is the
+  reference of both port drivers; farmer golden acreage within 1e-4
   (tests/test_examples.py).
 """
 
@@ -27,7 +28,6 @@ import parapint_tpu as pt
 import parapint_tpu_torch as ptt
 from parapint_tpu.examples import stochastic as jfarmer
 from parapint_tpu.interfaces.stochastic import StochasticModelSpec as JSpec
-from parapint_tpu.utils.timer import HierarchicalTimer as JTimer
 from parapint_tpu_torch.convert import ipstate_from_numpy, ipstate_to_numpy, spec_arrays_from_numpy
 from parapint_tpu_torch.examples import stochastic
 from parapint_tpu_torch.interfaces.base import STATE_FIELDS
@@ -215,8 +215,14 @@ def _checks(timer) -> int:
 
 def test_farmer_through_ip_solve():
     """examples/stochastic.main: golden acreage (170, 80, 250) within 1e-4
-    and the JAX package's objective; the same number of iterations."""
-    j = jfarmer.main()
+    and the JAX package's objective and acreage.  The JAX reference is the
+    example's farmer and solver through the fused driver, which reaches the
+    JAX ``main``'s (``ip_solve``) acreage and objective to the last digit
+    (tests/test_fused.py holds the two JAX drivers together)."""
+    j = pt.StochasticSchurComplementInteriorPointInterface(jfarmer.build_spec())
+    jo = pt.IPOptions()
+    jo.linalg.solver = pt.SchurComplementSolver(block_size=16)
+    assert pt.ip_solve_fused(j, jo)[0] == pt.InteriorPointStatus.optimal
     t = stochastic.main(device="cpu")
     acre = t.get_first_stage_values().numpy()
     np.testing.assert_allclose(acre, [170.0, 80.0, 250.0], rtol=0, atol=1e-4)
@@ -250,35 +256,44 @@ def test_farmer_family_through_the_fused_driver():
     assert abs(t_res.iterations - int(j_res.iterations)) <= 1
 
 
-@pytest.mark.parametrize("driver", ["fused", "ip_solve"])
-def test_stochastic_qp_hybrid_matches_reference(driver):
-    """The QP generator at N=4, n=48, me=12, n_first=8 with a float32 KKT
-    through the hybrid solver (float64 pivot sweep, float32 W and applies,
-    adaptive refinement), tol 1e-8."""
-    out = []
+def _qp_solve(pkg, iface, f64, f32, driver, timer):
+    """(status value, objective, iterations) of the small QP through the
+    hybrid solver at tol 1e-8."""
+    opts = pkg.IPOptions()
+    opts.tol = 1e-8
+    opts.linalg.solver = _hybrid(pkg, f64, f32)
     with warnings.catch_warnings():
         # kkt_dtype=f32 with a float64 factor warns in both packages
         warnings.simplefilter("ignore", UserWarning)
-        for pkg, f64, f32 in ((pt, jnp.float64, jnp.float32), (ptt, torch.float64, torch.float32)):
-            if pkg is pt:
-                iface, timer = _jax_qp(**QP), JTimer()
-            else:
-                iface = ptt.StochasticSchurComplementInteriorPointInterface(
-                    stochastic.qp_spec(**QP, device="cpu"), kkt_dtype=torch.float32
-                )
-                timer = HierarchicalTimer()
-            opts = pkg.IPOptions()
-            opts.tol = 1e-8
-            opts.linalg.solver = _hybrid(pkg, f64, f32)
-            if driver == "fused":
-                status, res = pkg.ip_solve_fused(iface, opts)
-                iters = int(res.iterations)
-            else:
-                status = pkg.ip_solve(iface, opts, timer=timer)
-                iters = _checks(timer)
-            out.append((status.value, float(iface.evaluate_objective()), iters))
-    (js, j_obj, jn), (ts, t_obj, tn) = out
-    print(f"stochastic QP {driver}: iterations JAX {jn} port {tn}; objective JAX {j_obj!r} port {t_obj!r}")
+        if driver == "fused":
+            status, res = pkg.ip_solve_fused(iface, opts)
+            iters = int(res.iterations)
+        else:
+            status = pkg.ip_solve(iface, opts, timer=timer)
+            iters = _checks(timer)
+    return status.value, float(iface.evaluate_objective()), iters
+
+
+@pytest.fixture(scope="module")
+def jax_qp():
+    """One JAX fused solve of the small QP, the reference of both port
+    drivers (the JAX package holds its fused driver to its Python-loop
+    driver in tests/test_fused.py)."""
+    return _qp_solve(pt, _jax_qp(**QP), jnp.float64, jnp.float32, "fused", None)
+
+
+@pytest.mark.parametrize("driver", ["fused", "ip_solve"])
+def test_stochastic_qp_hybrid_matches_reference(jax_qp, driver):
+    """The QP generator at N=4, n=48, me=12, n_first=8 with a float32 KKT
+    through the hybrid solver (float64 pivot sweep, float32 W and applies,
+    adaptive refinement), tol 1e-8."""
+    iface = ptt.StochasticSchurComplementInteriorPointInterface(
+        stochastic.qp_spec(**QP, device="cpu"), kkt_dtype=torch.float32
+    )
+    js, j_obj, jn = jax_qp
+    ts, t_obj, tn = _qp_solve(ptt, iface, torch.float64, torch.float32, driver, HierarchicalTimer())
+    print(f"stochastic QP {driver}: iterations JAX fused {jn} port {tn}; "
+          f"objective JAX {j_obj!r} port {t_obj!r}")
     assert js == ts == pt.InteriorPointStatus.optimal.value
     assert abs(t_obj - j_obj) <= OBJ_REL_GAP * max(1.0, abs(j_obj))
     assert abs(tn - jn) <= 1
