@@ -11,8 +11,8 @@ reference's default scale; the sharded (multi-rank) solvers over
 and assembles its own blocks); the host ``HostBKSolver``; the
 reference-name layer ``parapint_tpu_torch.compat``; the bench tools
 ``parapint_tpu_torch.tools.bench`` and ``bench_all``; and the iteration
-counts of four configurations against the JAX package's own spread under
-one-ulp perturbations of the initial point (ROADMAP C13/C14).
+counts of five configurations against the JAX package's own spread under
+one-ulp perturbations of the initial point (ROADMAP C5, C13/C14).
 
     python3 chip_smoke.py
 
@@ -46,7 +46,15 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 5. dense SC        — the same with the dense ``DenseLDLSolver`` coupling:
                      K5 launches == 25 x numerics.
 6. bf16 W          — W stored in bf16, adaptive refinement with the
-                     auto-gate: optimal, bf16 K6 launches > 0.
+                     auto-gate: optimal at the JAX objective, iterations
+                     within 1 of the JAX package's fused count and in the
+                     set its ensembles span (``jax_count_set``: the
+                     initial point's one-ulp ones and the optimal solves
+                     of the panel-output witness; outside the first alone
+                     a count flag is printed; ROADMAP C5), bf16 K6
+                     launches > 0; each
+                     back solve's gate printed (fallback to the f32 W,
+                     passes on each W, probe values; ``solve_gates``).
 7. LD mode         — the first-iteration KKT through the packed-LDL^T
                      ``SchurComplementSolver(block_size=128)`` on the card
                      and on a CPU copy: inertia equal, solutions close, K2 ==
@@ -146,7 +154,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      through ``parapint_tpu_torch.compat`` on the card:
                      optimal at the JAX ``compat`` run's objective.
 20. bench          — ``python -m parapint_tpu_torch.tools.bench`` as a child,
-                     5 times: each line's ``n_iter`` within 1 of the JAX 6,
+                     4 times: each line's ``n_iter`` within 1 of the JAX 6,
                      ``value`` and ``vs_baseline`` > 0, ``backend`` "cuda" and
                      the card's line, the scipy baseline's child without a
                      card; then the median and spread of ``value``.
@@ -161,8 +169,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      as one child: exit 0, every row without an error and at
                      its JAX iterations.  (The tool's other six rows are the
                      configurations of phases 4, 9, 10, 12, 14 and 15.)
-22. parity         — ROADMAP C13/C14: bench_all rows 2, 5 and 9 and the
-                     flagship as two kinds through ``ip_solve`` (within 1 of
+22. parity         — ROADMAP C5, C13/C14: bench_all rows 2, 5 and 9, the
+                     flagship as two kinds and the bf16-W flagship
+                     (``burgers_bf16_w``) through ``ip_solve`` (within 1 of
                      the JAX package's ``ip_solve`` count; like every
                      ``ip_solve`` phase, it prints its log table and
                      inertia-correction lines), then the fused solve from the
@@ -178,7 +187,16 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      side by side with their sign test point by point
                      (``sign_test``; a lean is printed, not held: reordering
                      the panels' float32 arithmetic leans too,
-                     ``panel_order.py``).  ``python3 chip_smoke.py --parity CONFIG``
+                     ``panel_order.py``).  On the bf16-W flagship a
+                     perturbed point may end with status error: the
+                     statuses are printed, the unperturbed solve must be
+                     optimal, the ``ip_solve`` count lies in
+                     ``jax_count_set`` (in place of within 1 of JAX's),
+                     and the share of the others that
+                     are not optimal is
+                     held to the JAX package's by the one-sided Fisher test
+                     (``fisher_greater``, p >= 0.05; ROADMAP C5's rules (c)
+                     and (d)), bf16 K6 launched.  ``python3 chip_smoke.py --parity CONFIG``
                      runs only the build and this phase (also for row 10,
                      ``burgers_256blocks_dense_sc``).
 
@@ -475,6 +493,34 @@ BENCH_NEW_ROWS = {
     # cyclic reduction's panel width)
     "burgers_banded_nfex200_64blocks": (0.04724632409564694, 8, dict(K1=112), 0),
 }
+# The panel-output witness of the bf16-W flagship in the JAX package on the
+# CPU (ROADMAP C5): its block panel factorization's LD and W outputs moved
+# by -1, 0 or +1 ulp at random, 32 seeds, the bf16-W solver and the f32-W
+# control (``_dense_solver("cr")``) through the fused driver, from the
+# repository root:
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_parity.py burgers_bf16_w --witness 32
+# label -> (status, iterations) per seed; ``bf16_rounding.py`` holds the
+# card's share of solves not optimal to it by the one-sided Fisher test.
+BF16_WITNESS_JAX = {
+    "bf16 W": [
+        ("optimal", 10), ("error", 2), ("error", 2), ("optimal", 9), ("optimal", 11),
+        ("optimal", 9), ("optimal", 9), ("optimal", 9), ("optimal", 9), ("optimal", 10),
+        ("optimal", 10), ("error", 2), ("optimal", 10), ("optimal", 10), ("optimal", 11),
+        ("optimal", 11), ("optimal", 13), ("optimal", 9), ("optimal", 10), ("error", 2),
+        ("optimal", 10), ("optimal", 11), ("optimal", 12), ("optimal", 9), ("optimal", 9),
+        ("optimal", 9), ("optimal", 9), ("optimal", 10), ("optimal", 12), ("error", 2),
+        ("optimal", 9), ("optimal", 11),
+    ],
+    "f32 W": [
+        ("optimal", 8), ("optimal", 8), ("optimal", 8), ("optimal", 8), ("optimal", 8),
+        ("optimal", 8), ("optimal", 8), ("optimal", 8), ("optimal", 8), ("optimal", 8),
+        ("optimal", 8), ("optimal", 8), ("optimal", 8), ("optimal", 8), ("optimal", 8),
+        ("optimal", 8), ("optimal", 8), ("optimal", 8), ("optimal", 8), ("optimal", 8),
+        ("optimal", 8), ("optimal", 8), ("optimal", 8), ("optimal", 9), ("optimal", 8),
+        ("optimal", 8), ("optimal", 7), ("optimal", 8), ("optimal", 8), ("optimal", 8),
+        ("optimal", 8), ("optimal", 8),
+    ],
+}
 # The JAX package's iteration counts on the CPU from the initial point and
 # from one-ulp perturbations of it (ROADMAP C13/C14), each configuration at
 # its full size, from the repository root:
@@ -488,7 +534,9 @@ BENCH_NEW_ROWS = {
 # teacher-forced comparison ("first_fail", "first_fault") and the faults
 # by its rule ("verdict"; PERF.md §6).
 # config -> (perturbations, JAX objective, JAX fused counts with the
-# unperturbed first, JAX ``ip_solve`` counts likewise, initial point digest)
+# unperturbed first, JAX ``ip_solve`` counts likewise, initial point digest
+# [, the counts of the JAX package's other ensembles over rounding, which
+# ``jax_count_set`` adds to the fused ones])
 PARITY = {
     "burgers_ssc_8blocks": (
         16, BENCH_NEW_ROWS["burgers_ssc_8blocks"][0],
@@ -507,10 +555,22 @@ PARITY = {
     "burgers_256blocks_dense_sc": (
         8, BURGERS256_JAX_OBJECTIVE, [11, 10, 10, 10, 10, 10, 10, 10, 10],
         [11, 10, 10, 10, 10, 10, 10, 10, 10], "95ceeab9c693cd8d"),
+    # the bf16-W flagship (ROADMAP C5); its counts from the command above,
+    # every JAX solve optimal; its other ensembles: the ip_solve one and the
+    # optimal solves of the panel-output witness (BF16_WITNESS_JAX)
+    "burgers_bf16_w": (
+        16, JAX_OBJECTIVE, [11, 11, 11, 11, 10, 11, 10, 11, 11, 10, 11, 10, 10, 10, 10, 10, 9],
+        [10, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 10, 9, 9, 10, 10, 10], "f6ee4fea2d558767",
+        [10, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 10, 9, 9, 10, 10, 10]
+        + [n for st, n in BF16_WITNESS_JAX["bf16 W"] if st == "optimal"]),
 }
+# configurations whose one-ulp points may end with another status than
+# optimal -> the JAX package's fused solves of the ensemble that did
+# (ROADMAP C5's rule (c) holds the card's share to it)
+PARITY_NOT_OPTIMAL = {"burgers_bf16_w": 0}
 # phase 22's configurations: row 10 (15-20 s per solve) only on request
 PARITY_CARD = tuple(name for name in PARITY if name != "burgers_256blocks_dense_sc")
-BENCH_RUNS = 5  # runs of the bench tool, for the spread of its value
+BENCH_RUNS = 3  # runs of the bench tool, for the spread of its value
 BENCH_TIMEOUT = 300  # seconds for one run of the bench tool
 BENCH_ROW_TIMEOUT = 240  # bench_all's --timeout per row
 BENCH_ALL_TIMEOUT = 900  # seconds for the whole bench_all child
@@ -575,6 +635,78 @@ def sign_test(ref, other):
     n, k = up + down, min(up, down)
     p = min(1.0, 2 * sum(math.comb(n, i) for i in range(k + 1)) / 2**n) if n else 1.0
     return up, down, p
+
+
+def fisher_greater(bad, n, ref_bad, ref_n):
+    """The exact one-sided Fisher test that ``bad`` of ``n`` runs failing
+    is a larger share than ``ref_bad`` of ``ref_n``: P(X >= bad) for X
+    hypergeometric (``bad + ref_bad`` failures among ``n + ref_n`` runs,
+    ``n`` of them drawn).  A fault of rule (c) (ROADMAP C5) is p < LEAN_P."""
+    total, fails = n + ref_n, bad + ref_bad
+    hits = sum(math.comb(fails, x) * math.comb(total - fails, n - x)
+               for x in range(bad, min(fails, n) + 1))
+    return hits / math.comb(total, n)
+
+
+@contextlib.contextmanager
+def gate_probes(solver):
+    """Record the adaptive refinement's probes of ``solver`` (a
+    ``SchurComplementSolver``) while the block runs, as a list of
+    (gate fallbacks so far, sqrt(rn2 / thresh), refine again): the probe's
+    residual norm over its threshold norm, and its decision (the value
+    exceeds 1 or is not finite).  Wraps ``linalg/schur.py::_refine_residual``,
+    which every probe calls; the solver keeps no count of its own."""
+    from parapint_tpu_torch.linalg import schur
+
+    residual = schur._refine_residual
+    probes = []
+
+    def recorded(*args, **kw):
+        rn2, thresh = residual(*args, **kw)
+        need = bool((~torch.isfinite(rn2) | (rn2 > thresh)).item())
+        probes.append((solver.n_gate_fallbacks, float(torch.sqrt(rn2 / thresh)), need))
+        return rn2, thresh
+
+    schur._refine_residual = recorded
+    try:
+        yield probes
+    finally:
+        schur._refine_residual = residual
+
+
+@contextlib.contextmanager
+def solve_gates(solver):
+    """The gate of each ``solve_with_status`` call of ``solver`` while the
+    block runs (``gate_of`` of its ``gate_probes``), as a list."""
+    gates = []
+    with gate_probes(solver) as probes:
+        solve = solver.solve_with_status
+
+        def delimited(fact, rhs):
+            n, fallbacks = len(probes), solver.n_gate_fallbacks
+            out = solve(fact, rhs)
+            gates.append(gate_of(probes[n:], fallbacks))
+            return out
+
+        solver.solve_with_status = delimited
+        try:
+            yield gates
+        finally:
+            del solver.solve_with_status
+
+
+def gate_of(probes, fallbacks0=0):
+    """A solve's gate from its ``gate_probes`` (those of one
+    ``solve_with_status`` call, ``fallbacks0`` the solver's fallbacks
+    before it): {"fallback": 0 or 1, "passes": [passes on the stored W,
+    then on the full W after a fallback], "probes": the (value, decision)
+    pairs of each}; None for a solve that probed nothing."""
+    if not probes:
+        return None
+    phases = [[(v, need) for f, v, need in probes if f == fallbacks0],
+              [(v, need) for f, v, need in probes if f > fallbacks0]]
+    phases = [ph for ph in phases if ph]
+    return dict(fallback=len(phases) - 1, passes=[len(ph) - 1 for ph in phases], probes=phases)
 
 
 def primal_digest(primals):
@@ -885,12 +1017,12 @@ def _dense_solver(coupling="cr", w_store=None, refine=0):
     )
 
 
-def _dense_iface():
+def _dense_iface(device="cuda"):
     import parapint_tpu_torch as ptt
     from parapint_tpu_torch.examples import burgers
 
     t0 = time.perf_counter()
-    spec = burgers.build_spec(**FLAGSHIP)  # the card is the default device
+    spec = burgers.build_spec(**FLAGSHIP, device=device)
     iface = ptt.DynamicSchurComplementInteriorPointInterface(spec, kkt_dtype=torch.float32)
     print(f"dense interface {FLAGSHIP}: nk {iface.nk} ns {iface.ns} ncv {iface.ncv} "
           f"setup {time.perf_counter() - t0:.2f} s")
@@ -1020,10 +1152,25 @@ def phase_dense_sc(iface):
     return c
 
 
+def _bf16_solver():
+    return _dense_solver("cr", w_store=torch.bfloat16, refine=None)
+
+
 def phase_bf16(iface):
-    solver = _dense_solver("cr", w_store=torch.bfloat16, refine=None)
-    _, c = _counted_solve(iface, solver, "bf16 W")
-    print(f"bf16 W: auto-gate fell back to the f32 W in {solver.n_gate_fallbacks} solve(s)")
+    """The dense flagship with W stored in bf16 (ROADMAP C5): optimal at
+    the JAX objective, iterations within 1 of the JAX package's fused count
+    and in its ensemble's set (``_hold_count``), bf16 K6 launched; each
+    back solve's gate printed (fallback to the f32 W, refinement passes on
+    each W, the probe values)."""
+    solver = _bf16_solver()
+    with solve_gates(solver) as gates:
+        _, c = _counted_solve(iface, solver, "bf16 W")
+    name = "burgers_bf16_w"
+    print(f"bf16 W: auto-gate fell back to the f32 W in {solver.n_gate_fallbacks} of "
+          f"{len(gates)} solve(s); per solve (fallback, passes per W, probe values): " + "; ".join(
+              f"{g['fallback']} {g['passes']} " + str([[float(f"{v:.3g}") for v, _ in ph]
+                                                       for ph in g["probes"]]) for g in gates))
+    _hold_count("bf16 W", c["iterations"], PARITY[name][2][0], name)
     if not c["K6_bf16"] > 0:
         raise AssertionError("bf16 W: no bf16 K6 launch")
     return c
@@ -1235,12 +1382,12 @@ def captured_log(name):
         logger.setLevel(level)
 
 
-def _counted_ip_solve(iface, solver, label, ref, ref_iters, tol=TOL):
+def _counted_ip_solve(iface, solver, label, ref, ref_iters, tol=TOL, ref_set=None):
     """One ``ip_solve`` with every count zeroed just before and read just
     after, its log table and inertia-correction lines printed after it
     (each prefixed with ``label``): optimal, the JAX objective and
     iterations within 1 of ``ref_iters`` (``ip_solve`` iterations are its
-    convergence checks)."""
+    convergence checks), or, given ``ref_set``, in that set."""
     import parapint_tpu_torch as ptt
     from parapint_tpu_torch.utils.timer import HierarchicalTimer
 
@@ -1269,8 +1416,9 @@ def _counted_ip_solve(iface, solver, label, ref, ref_iters, tol=TOL):
     say(f"{label} phases: {_timer_lines(timer)}")
     if status != ptt.InteriorPointStatus.optimal or gap > OBJ_REL_GAP:
         raise AssertionError(f"{label}: {status.name}, gap {gap}")
-    if abs(n_iter - ref_iters) > 1:
-        raise AssertionError(f"{label}: {n_iter} iterations, JAX {ref_iters}")
+    if (abs(n_iter - ref_iters) > 1) if ref_set is None else (n_iter not in ref_set):
+        raise AssertionError(f"{label}: {n_iter} iterations, JAX {ref_iters} "
+                             f"(its ensembles' set {ref_set})")
     return c
 
 
@@ -2084,19 +2232,36 @@ def _check_panel_launches(label, c, per_numeric):
                                  f"expected {per_numeric.get(k, 0)} per numeric")
 
 
+def jax_count_set(config):
+    """The iterations the JAX package takes on a configuration of
+    ``PARITY`` over its ensembles: the fused one of the initial point's
+    one-ulp perturbations and any the entry names after its digest (the
+    bf16-W flagship's: ROADMAP C5)."""
+    entry = PARITY[config]
+    return sorted(set(entry[2]).union(*entry[5:]))
+
+
 def _hold_count(label, n_iter, ref, config):
     """A fused solve's iterations: within 1 of the JAX package's ``ref``
-    and, where ``PARITY`` has ``config``, in the set of counts of the JAX
-    package's perturbation ensemble."""
+    and, where ``PARITY`` has ``config``, in ``jax_count_set``.  A count
+    outside the initial point's fused ensemble alone is printed as a count
+    flag (ROADMAP C5), not held."""
     if abs(n_iter - ref) > 1:
         raise AssertionError(f"{label}: {n_iter} iterations, JAX {ref}")
-    if config in PARITY and n_iter not in PARITY[config][2]:
-        raise AssertionError(f"{label}: {n_iter} iterations, outside the JAX ensemble's counts "
-                             f"{sorted(set(PARITY[config][2]))}")
+    if config not in PARITY:
+        return
+    if n_iter not in jax_count_set(config):
+        raise AssertionError(f"{label}: {n_iter} iterations, outside the JAX ensembles' counts "
+                             f"{jax_count_set(config)}")
+    if n_iter not in PARITY[config][2]:
+        say(f"{label}: count flag: {n_iter} iterations, outside the JAX initial-point "
+            f"ensemble's set {sorted(set(PARITY[config][2]))} (in its other ensembles')")
 
 
 def _parity_config(name, device="cuda"):
     """(interface, solver) of a configuration of ``PARITY`` on ``device``."""
+    if name == "burgers_bf16_w":
+        return _dense_iface(device), _bf16_solver()
     if name == "burgers_two_kinds":
         from parapint_tpu_torch.examples import burgers
 
@@ -2109,18 +2274,21 @@ def _parity_config(name, device="cuda"):
 
 def _parity_launches(name):
     """Panel-kernel launches per numeric of a configuration of ``PARITY``."""
-    if name == "burgers_two_kinds":
+    if name in ("burgers_two_kinds", "burgers_bf16_w"):
         return dict(K1=DENSE_K1_PER_NUMERIC)
     if name == "burgers_pcg_coupling_8blocks":
         return dict(K1=PCG_K1_PER_NUMERIC)
     return BENCH_NEW_ROWS[name][2]
 
 
-def _ensemble(iface, solver, label, n, ref, tol=TOL):
+def _ensemble(iface, solver, label, n, ref, tol=TOL, statuses=None):
     """The fused solve from the initial iterate and from its ``n`` one-ulp
     perturbations (``ulp_perturbations``), each optimal at the JAX
     objective ``ref``: (iterations per point, the unperturbed first; a
-    digest of the initial primal point's bytes)."""
+    digest of the initial primal point's bytes).  With a list
+    ``statuses``, a perturbed point may end with another status, which is
+    appended there (each point's status name, the unperturbed first, which
+    must be optimal)."""
     import parapint_tpu_torch as ptt
 
     opts = ptt.IPOptions()
@@ -2136,7 +2304,11 @@ def _ensemble(iface, solver, label, n, ref, tol=TOL):
         state = s0 if p is None else dataclasses.replace(s0, primals={
             k: torch.as_tensor(v, dtype=torch.float64, device=iface.device) for k, v in p.items()})
         result = solve(state)
-        _objective_gap(iface, result, f"{label} point {len(counts)}", ref)
+        status = ptt.InteriorPointStatus(int(result.status)).name
+        if statuses is not None:
+            statuses.append(status)
+        if statuses is None or status == "optimal" or not counts:
+            _objective_gap(iface, result, f"{label} point {len(counts)}", ref)
         counts.append(result.iterations)
     return counts, digest
 
@@ -2159,19 +2331,39 @@ def phase_parity(names=None):
     with their sign test."""
     out = {}
     for name in PARITY_CARD if names is None else names:
-        n, ref, jax_counts, jax_ip, digest_cpu = PARITY[name]
+        n, ref, jax_counts, jax_ip, digest_cpu, *_ = PARITY[name]
         t0 = time.perf_counter()
         iface, solver = _parity_config(name)
-        n_ip = _counted_ip_solve(iface, solver, f"{name} ip_solve", ref, jax_ip[0])["iterations"]
+        gated = name in PARITY_NOT_OPTIMAL
+        # an entry that names further ensembles (the bf16-W flagship's:
+        # ROADMAP C5) holds its ip_solve to their set instead of within 1
+        n_ip = _counted_ip_solve(iface, solver, f"{name} ip_solve", ref, jax_ip[0],
+                                 ref_set=jax_count_set(name) if len(PARITY[name]) > 5
+                                 else None)["iterations"]
         _reset_counts()
         _reset_solver(solver)
-        counts, digest = _ensemble(iface, solver, name, n, ref)
+        statuses = [] if gated else None
+        counts, digest = _ensemble(iface, solver, name, n, ref, statuses=statuses)
         c = _counts()
         _solver_counts(solver, c)
         _check_panel_launches(f"{name} ensemble", c, _parity_launches(name))
         if not c["K6"] == 2 * c["solves"] + sum(c.get("cg", [])) > 0:
             raise AssertionError(f"{name} ensemble: K6 {c['K6']} launches for {c['solves']} back solves")
-        jax_set = sorted(set(jax_counts))
+        if gated:
+            # ROADMAP C5's rules (c)-(d): the unperturbed solve optimal
+            # (``_ensemble``), the share of the others not optimal no higher
+            # than the JAX package's by the one-sided Fisher test
+            bad = sum(st != "optimal" for st in statuses)
+            p_share = fisher_greater(bad, len(statuses), PARITY_NOT_OPTIMAL[name], len(jax_counts))
+            say(f"{name}: statuses {statuses}; not optimal {bad} of {len(statuses)} (JAX CPU "
+                f"{PARITY_NOT_OPTIMAL[name]} of {len(jax_counts)}), one-sided Fisher p {p_share:.4f}; "
+                f"gate fallbacks {solver.n_gate_fallbacks}, bf16 K6 launches {c['K6_bf16']}")
+            if p_share < LEAN_P:
+                raise AssertionError(f"{name}: {bad} of {len(statuses)} solves not optimal, JAX "
+                                     f"{PARITY_NOT_OPTIMAL[name]} (Fisher p {p_share:.4f}; ROADMAP C5 (c))")
+            if not c["K6_bf16"] > 0:
+                raise AssertionError(f"{name} ensemble: no bf16 K6 launch")
+        jax_set = jax_count_set(name)
         up, down, p = sign_test(jax_counts, counts)
         say(f"{name}: ip_solve {n_ip} iterations (JAX {jax_ip[0]}); fused from the initial point {counts[0]} "
             f"(JAX {jax_counts[0]}, JAX ensemble's set {jax_set}); over {n} one-ulp "
@@ -2183,7 +2375,7 @@ def phase_parity(names=None):
             raise AssertionError(f"{name}: the initial point differs from the CPU's")
         _hold_count(name, counts[0], jax_counts[0], name)
         out[name] = dict(ip_solve=n_ip, fused=counts, jax_fused=jax_counts, sign_test=[up, down, p],
-                         launches=c)
+                         launches=c, statuses=statuses)
         del iface, solver
         torch.cuda.empty_cache()
     return out

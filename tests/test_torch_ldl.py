@@ -19,6 +19,17 @@ from parapint_tpu_torch.ops import ldl as tldl
 
 torch.set_num_threads(1)
 
+# the JAX package's helpers that it does not jit itself, under jax.jit as
+# its callers run them (eagerly, each of their operations compiles anew)
+j_ruiz_scale = jax.jit(jldl.ruiz_scale)
+j_ldl_winv = jax.jit(jldl.ldl_winv, static_argnums=1)
+j_unit_lower_inv_blocked = jax.jit(jldl.unit_lower_inv_blocked, static_argnums=1)
+j_winv_apply = jax.jit(jldl.winv_apply)
+j_ldl_inverse = jax.jit(jldl.ldl_inverse)
+j_unit_lower_inv_b = jax.jit(jldl._unit_lower_inv_b)
+j_batch_inertia = jax.jit(lambda d, n: jax.vmap(lambda x: jldl.ldl_inertia(x, n=n))(d),
+                          static_argnums=1)
+
 
 def kkt_like(n, m, rng, c_reg=0.0):
     """Quasi-definite KKT-like matrix [H J^T; J -c I] (as tests/test_ldl.py)."""
@@ -60,7 +71,7 @@ def test_factor_winv_batched_f32_panel_path(n, bs):
     """float32 goes through the panel wrapper (plain version on the CPU)."""
     rng = np.random.default_rng(n)
     A = np.stack([kkt_like(n - 5, 5, rng, c_reg=1e-3) for _ in range(3)])
-    s = np.stack([np.asarray(jldl.ruiz_scale(jnp.asarray(a))) for a in A])
+    s = np.stack([np.asarray(j_ruiz_scale(jnp.asarray(a))) for a in A])
     A = (A * s[:, :, None] * s[:, None, :]).astype(np.float32)
     LD_r, d_r, W_r = jldl.ldl_factor_winv_batched(jnp.asarray(A), block_size=bs)
     LD, d, W = tldl.ldl_factor_winv_batched(torch.as_tensor(A), block_size=bs)
@@ -68,7 +79,7 @@ def test_factor_winv_batched_f32_panel_path(n, bs):
     assert np.abs(np.tril(LD.numpy()) - np.tril(np.asarray(LD_r))).max() < 2e-5 * scale
     assert np.abs(W.numpy() - np.asarray(W_r)).max() < 2e-5 * np.abs(np.asarray(W_r)).max()
     pos, neg, zero = tldl.ldl_inertia(d, n=n)
-    pr, nr, zr = jax.vmap(lambda x: jldl.ldl_inertia(x, n=n))(d_r)
+    pr, nr, zr = j_batch_inertia(d_r, n)
     assert pos.tolist() == np.asarray(pr).tolist()
     assert neg.tolist() == np.asarray(nr).tolist() == [5, 5, 5]
     assert zero.tolist() == np.asarray(zr).tolist()
@@ -96,7 +107,7 @@ def test_panel_width_snaps_to_multiple_of_8():
 def test_ruiz_scale_matches_reference():
     rng = np.random.default_rng(1)
     A = np.stack([kkt_like(30, 6, rng) * 10.0 ** rng.uniform(-8, 8) for _ in range(3)])
-    s_r = np.stack([np.asarray(jldl.ruiz_scale(jnp.asarray(a))) for a in A])
+    s_r = np.stack([np.asarray(j_ruiz_scale(jnp.asarray(a))) for a in A])
     np.testing.assert_allclose(tldl.ruiz_scale(_t(A)).numpy(), s_r, rtol=1e-13)
 
 
@@ -117,7 +128,7 @@ def test_recursive_unit_lower_inverse(n):
     C = np.linalg.cholesky(K)
     L = C / np.diag(C)[None, :]  # unit lower factor of K = L D L^T
     W = tldl._unit_lower_inv_b(_t(L[None]))[0].numpy()
-    W_r = np.asarray(jldl._unit_lower_inv_b(jnp.asarray(L[None])))[0]
+    W_r = np.asarray(j_unit_lower_inv_b(jnp.asarray(L[None])))[0]
     np.testing.assert_allclose(W, W_r, rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(W @ L, np.eye(n), atol=1e-9)
 
@@ -183,27 +194,27 @@ def test_winv_family_matches_reference(dtype):
     rng = np.random.default_rng(3)
     n = 50
     K = kkt_like(n - 10, 10, rng, c_reg=1e-2)
-    s = np.asarray(jldl.ruiz_scale(jnp.asarray(K)))
+    s = np.asarray(j_ruiz_scale(jnp.asarray(K)))
     K = (K * s[:, None] * s[None, :]).astype(npd)
     LD_r, d_r = jldl.ldl_factor(jnp.asarray(K), block_size=16)
     LD = torch.as_tensor(np.array(LD_r))
-    W_r, dd_r = jldl.ldl_winv(LD_r, 16)
+    W_r, dd_r = j_ldl_winv(LD_r, 16)
     W, dd = tldl.ldl_winv(LD, 16)
     scale = np.abs(np.asarray(W_r)).max()
     assert np.abs(W.numpy() - np.asarray(W_r)).max() <= tol * scale
     np.testing.assert_array_equal(dd.numpy(), np.asarray(dd_r))
     L = np.tril(np.asarray(LD_r), -1)[:45, :45] + np.eye(45, dtype=npd)
     Wb = tldl.unit_lower_inv_blocked(torch.as_tensor(L), 16).numpy()
-    Wb_r = np.asarray(jldl.unit_lower_inv_blocked(jnp.asarray(L), 16))
+    Wb_r = np.asarray(j_unit_lower_inv_blocked(jnp.asarray(L), 16))
     assert Wb.shape == (45, 45)
     assert np.abs(Wb - Wb_r).max() <= tol * np.abs(Wb_r).max()
     b = rng.standard_normal((n, 2)).astype(npd)
     x = tldl.winv_apply(W, dd, torch.as_tensor(b)).numpy()
-    x_r = np.asarray(jldl.winv_apply(W_r, dd_r, jnp.asarray(b)))
+    x_r = np.asarray(j_winv_apply(W_r, dd_r, jnp.asarray(b)))
     assert np.abs(x - x_r).max() <= 10 * tol * max(1.0, np.abs(x_r).max())
     assert np.abs(K @ x - b).max() <= 100 * tol * max(1.0, np.abs(b).max())
     Kinv = tldl.ldl_inverse(LD, dd).numpy()
-    Kinv_r = np.asarray(jldl.ldl_inverse(LD_r, d_r))
+    Kinv_r = np.asarray(j_ldl_inverse(LD_r, d_r))
     assert np.abs(Kinv - Kinv_r).max() <= 10 * tol * np.abs(Kinv_r).max()
 
 
@@ -217,7 +228,7 @@ def test_factor_winv_batched_f32_width_50(monkeypatch, algo, n):
     monkeypatch.setenv("PT_PANEL_ALGO", algo)
     rng = np.random.default_rng(n + 50)
     A = np.stack([kkt_like(n - 5, 5, rng, c_reg=1e-3) for _ in range(3)])
-    s = np.stack([np.asarray(jldl.ruiz_scale(jnp.asarray(a))) for a in A])
+    s = np.stack([np.asarray(j_ruiz_scale(jnp.asarray(a))) for a in A])
     A = (A * s[:, :, None] * s[:, None, :]).astype(np.float32)
     LD_r, d_r, W_r = jldl.ldl_factor_winv_batched(jnp.asarray(A), block_size=50)
     LD, d, W = tldl.ldl_factor_winv_batched(torch.as_tensor(A), block_size=50)
@@ -229,7 +240,7 @@ def test_factor_winv_batched_f32_width_50(monkeypatch, algo, n):
     LD2_r, _ = jldl.ldl_factor_batched(jnp.asarray(A), block_size=50)
     assert np.abs(np.tril(LD2.numpy()) - np.tril(np.asarray(LD2_r))).max() < 2e-5 * scale
     pos, neg, zero = tldl.ldl_inertia(d, n=n)
-    pr, nr, zr = jax.vmap(lambda x: jldl.ldl_inertia(x, n=n))(d_r)
+    pr, nr, zr = j_batch_inertia(d_r, n)
     assert pos.tolist() == np.asarray(pr).tolist()
     assert neg.tolist() == np.asarray(nr).tolist() == [5, 5, 5]
     assert zero.tolist() == np.asarray(zr).tolist() == [0, 0, 0]

@@ -13,6 +13,7 @@ ROOT = Path(__file__).resolve().parent.parent
 SCRIPTS = ["chip_smoke.py", "profile_flagship.py", "bf16_rounding.py"]
 
 sys.path.insert(0, str(ROOT))
+torch.set_num_threads(1)
 
 from test_torch_imports import FORBIDDEN, _imported_roots  # noqa: E402
 
@@ -37,3 +38,20 @@ def test_nudge_moves_each_entry_by_at_most_one_ulp(unit_diag):
     assert int((Y != X).sum()) > X.numel() // 4  # about 2/3 of the nonzeros move
     if unit_diag:
         assert torch.equal(torch.diagonal(Y, dim1=1, dim2=2), torch.ones(3, 16))
+
+
+def test_bf16_rounding_runs_on_the_cpu():
+    """``bf16_rounding.py``'s ulp witness at the ``entry()`` shape on the
+    CPU (its ``--device cpu`` path): the probe wrapper of its traced solves
+    takes the solver's process-group argument (it raised a ``TypeError``
+    since the sharded solvers added it), every witness solve is optimal and
+    the tally holds one run per solver and seed."""
+    import bf16_rounding
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import burgers
+
+    spec = burgers.build_spec(nfe_x=8, nfe_t=8, num_time_blocks=4, device="cpu")
+    iface = ptt.DynamicSchurComplementInteriorPointInterface(spec, kkt_dtype=torch.float32)
+    tally = bf16_rounding.witness(iface, 1)
+    assert {k: [st for st, *_ in v] for k, v in tally.items()} == {
+        "bf16 W": ["optimal"], "f32 W": ["optimal"]}

@@ -460,17 +460,18 @@ def _keeper(refs):
     return keep
 
 
-def _jax_per_world(P):
-    """The JAX sharded solver on the random systems on a P-device mesh
-    (numeric and solve under ``jax.jit``, as the JAX package's tests run
-    them)."""
+def _jax_random(mesh):
+    """The JAX sharded solver on the random systems on ``mesh`` (numeric
+    and solve under ``jax.jit``, as the JAX package's tests run them).
+    ``_jax_shared`` computes them once, on 2 devices, for every world size:
+    the answers do not depend on the device count beyond rounding, far
+    inside the tests' 1e-12."""
     import jax
     import jax.numpy as jnp
     import parapint_tpu as pt
     from parapint_tpu.linalg.schur import BlockKKT as JBlockKKT
     from parapint_tpu.linalg.schur import BlockRhs as JBlockRhs
 
-    mesh = _jax_mesh(P)
     refs = {}
     keep = _keeper(refs)
     for N, nk, nc in RANDOM_SYSTEMS:
@@ -488,8 +489,9 @@ def _jax_per_world(P):
 def _jax_shared(kkts):
     """The references held against every world size, computed once on a
     2-device mesh (the answers do not depend on the device count beyond
-    rounding): the Burgers first KKTs through the sharded dense, banded and
-    PCG solvers, the fused solves, the QP with ownership, psc and csc."""
+    rounding): the random systems (``_jax_random``), the Burgers first KKTs
+    through the sharded dense, banded and PCG solvers, the fused solves,
+    the QP with ownership, psc and csc."""
     import jax
     import jax.numpy as jnp
     import parapint_tpu as pt
@@ -499,7 +501,7 @@ def _jax_shared(kkts):
     import bench_all
 
     mesh = _jax_mesh(2)
-    refs = {}
+    refs = _jax_random(mesh)
     keep = _keeper(refs)
     solvers = {case: burgers_solver(pt, mesh, case, kkt.border_loc.shape[1] // 2)
                for case, (kkt, _) in kkts.items()}
@@ -567,7 +569,8 @@ def inputs(tmp_path_factory):
 
 @pytest.fixture(scope="module", params=WORLDS, ids=lambda P: f"P{P}")
 def sharded(request, inputs):
-    """(P, per-rank results, JAX references on P devices, shared references)."""
+    """(P, per-rank results, the JAX references (twice: the random systems'
+    are among the shared ones since they are computed once))."""
     P = request.param
     workdir, kkts = inputs
     rundir = workdir / f"P{P}"
@@ -576,13 +579,12 @@ def sharded(request, inputs):
     deadline = time.monotonic() + LAUNCH_TIMEOUT
     procs = _launch(P, rundir)
     try:
-        refs = _jax_per_world(P)
         if not _SHARED:
             _SHARED.update(_jax_shared(kkts))
     finally:
         _wait(procs, deadline)
     ranks = [dict(np.load(rundir / f"rank{r}.npz")) for r in range(P)]
-    return P, ranks, refs, _SHARED
+    return P, ranks, _SHARED, _SHARED
 
 
 def _close(a, b, tol, rel=False):
