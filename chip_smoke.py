@@ -43,6 +43,16 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      ``make_fused_ip_solve``: status optimal, the JAX
                      objective, K1 launches == 14 x numerics, K6 launches ==
                      2 x back solves.
+4b. results       — after phase 4's solve, every accessor of the JAX
+                     package's interfaces (``results``): shapes and counts
+                     equal to the JAX package's, the backward and forward
+                     duals equal to the masked link duals; then the
+                     flagship warm-started from them (primals, coupling,
+                     own, link, inequality and bound duals) through the
+                     fused driver: optimal at the JAX objective, iterations
+                     at or below the cold ones and within 1 of the JAX
+                     package's warm count, K1 == 14 x numerics, K6 == 2 x
+                     back solves.
 5. dense SC        — the same with the dense ``DenseLDLSolver`` coupling:
                      K5 launches == 25 x numerics.
 6. bf16 W          — W stored in bf16, adaptive refinement with the
@@ -119,7 +129,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      first KKT through the LD mode (the 2-rank reference);
                      then the same through a ``mesh=`` interface, whose
                      range at one rank is every block: its final iterates
-                     ``torch.equal`` to the replicated run's.
+                     ``torch.equal`` to the replicated run's; then that
+                     interface through phase 4's serial solver (ROADMAP
+                     C11: it gathers the rank-local KKT whole): final
+                     iterates ``torch.equal`` to phase 4's.
 17. sharded, 2 ranks — two spawned ranks sharing the card over gloo (NCCL
                      refuses two ranks on one device), 32 blocks each.  Each
                      case runs twice, with the interface replicated (every
@@ -141,7 +154,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      solution within 1e-3 x max|x| of the 1-rank run's); PCG
                      with a mesh on bench_all's 8-block row (K1 == 8 x
                      numerics, K6 == 2 x back solves + CG iterations) and the
-                     harness's psc.  Each case is optimal at its JAX
+                     harness's psc; and (C11) the ``mesh=`` dense flagship
+                     through phase 4's serial solver, which gathers the KKT
+                     whole on each rank: iterations, objective and K1 per
+                     rank equal to phase 4's.  Each case is optimal at its JAX
                      objective with iterations within 1, each rank prints its
                      launches and all-reduce time, and the ranks' final
                      iterates are bitwise equal.
@@ -154,7 +170,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      through ``parapint_tpu_torch.compat`` on the card:
                      optimal at the JAX ``compat`` run's objective.
 20. bench          — ``python -m parapint_tpu_torch.tools.bench`` as a child,
-                     4 times: each line's ``n_iter`` within 1 of the JAX 6,
+                     twice (BENCH_RUNS): each line's ``n_iter`` within 1 of the JAX 6,
                      ``value`` and ``vs_baseline`` > 0, ``backend`` "cuda" and
                      the card's line, the scipy baseline's child without a
                      card; then the median and spread of ``value``.
@@ -265,6 +281,57 @@ JAX_DENSE_ITERATIONS = 7
 #   print(tp.ip_solve_run(pt, iface, tp._options(pt, solver))[:3])
 #   # -> ('optimal', 11, ...)
 TWO_KINDS_JAX_ITERATIONS = 7  # the fused solve's; ip_solve's 8
+# The dense flagship warm-started from its own solution in the JAX package
+# on the CPU (JAX_PLATFORMS=cpu, from the repository root):
+#   import numpy as np, jax.numpy as jnp, parapint_tpu as pt
+#   from parapint_tpu.examples import burgers
+#   shape = dict(nfe_x=50, nfe_t=256, num_time_blocks=64)
+#   def opts():
+#       o = pt.IPOptions(); o.tol = 1e-8
+#       o.linalg.solver = pt.SchurComplementSolver(block_size=128,
+#           explicit_inverse=True, factor_dtype=jnp.float32, refine_steps=0,
+#           schur_complement_solver=pt.BlockTridiagSolver())
+#       return o
+#   iface = pt.DynamicSchurComplementInteriorPointInterface(
+#       burgers.build_spec(**shape), kkt_dtype=jnp.float32)
+#   status, res = pt.ip_solve_fused(iface, opts())
+#   print(status, int(res.iterations))                     # -> optimal 7
+#   sol = res.state
+#   w = burgers.build_spec(**shape)
+#   w.x0 = jnp.asarray(sol.primals["blocks"]); w.c0 = np.asarray(sol.primals["coupling"])
+#   w.y_eq0 = np.asarray(sol.duals_eq["own"]); w.lam0 = np.asarray(sol.duals_eq["link"])
+#   w.y_ineq0 = np.asarray(sol.duals_ineq)
+#   w.zl0 = np.asarray(sol.duals_primals_lb["blocks"])
+#   w.zu0 = np.asarray(sol.duals_primals_ub["blocks"])
+#   wif = pt.DynamicSchurComplementInteriorPointInterface(w, kkt_dtype=jnp.float32)
+#   status, res = pt.ip_solve_fused(wif, opts())
+#   print(status, int(res.iterations), repr(float(wif.evaluate_objective())))
+#   # -> optimal 1 0.04755768812295933
+# (the warm point passes the first convergence check: no step is taken)
+WARM_JAX_ITERATIONS = 1
+# What the JAX package's dense flagship interface returns (``result_shapes``
+# of its interface after ``init_state``; JAX_PLATFORMS=cpu):
+#   import jax.numpy as jnp, parapint_tpu as pt, chip_smoke
+#   from parapint_tpu.examples import burgers
+#   iface = pt.DynamicSchurComplementInteriorPointInterface(
+#       burgers.build_spec(**chip_smoke.FLAGSHIP), kkt_dtype=jnp.float32)
+#   iface._current_state = iface.init_state()
+#   shapes = chip_smoke.result_shapes(iface)
+#   print({k: v for k, v in shapes.items() if not k.startswith("get_block_primals/")})
+#   print({k: getattr(iface, k)() for k in chip_smoke.RESULT_COUNTS})
+# -> the two dicts below; every get_block_primals/i is (510,)
+FLAGSHIP_JAX_SHAPES = {
+    "get_primals/blocks": (64, 510), "get_primals/coupling": (3087,),
+    "get_coupling_values": (3087,), "get_slacks": (64, 0), "get_duals_eq/own": (64, 314),
+    "get_duals_eq/link": (64, 98), "get_duals_ineq": (64, 0),
+    "get_duals_primals_lb/blocks": (64, 510), "get_duals_primals_lb/coupling": (3087,),
+    "get_duals_primals_ub/blocks": (64, 510), "get_duals_primals_ub/coupling": (3087,),
+    "get_duals_slacks_lb": (64, 0), "get_duals_slacks_ub": (64, 0),
+    "get_duals_backward": (64, 49), "get_duals_forward": (64, 49),
+    "n_primals": (), "n_eq_constraints": (), "n_ineq_constraints": (),
+}
+FLAGSHIP_JAX_BLOCK_SHAPE = (510,)
+FLAGSHIP_JAX_COUNTS = {"n_primals": 35727, "n_eq_constraints": 20096, "n_ineq_constraints": 0}
 OBJ_REL_GAP = 1e-6
 FLAGSHIP = dict(nfe_x=50, nfe_t=256, num_time_blocks=64)
 TILE_SIZE = 128
@@ -570,7 +637,7 @@ PARITY = {
 PARITY_NOT_OPTIMAL = {"burgers_bf16_w": 0}
 # phase 22's configurations: row 10 (15-20 s per solve) only on request
 PARITY_CARD = tuple(name for name in PARITY if name != "burgers_256blocks_dense_sc")
-BENCH_RUNS = 3  # runs of the bench tool, for the spread of its value
+BENCH_RUNS = 2  # runs of the bench tool, for the spread of its value
 BENCH_TIMEOUT = 300  # seconds for one run of the bench tool
 BENCH_ROW_TIMEOUT = 240  # bench_all's --timeout per row
 BENCH_ALL_TIMEOUT = 900  # seconds for the whole bench_all child
@@ -1054,6 +1121,48 @@ def burgers_two_kinds(spec, kkt_dtype=None, mesh=None):
     )
 
 
+RESULT_ACCESSORS = (
+    "get_primals", "get_coupling_values", "get_slacks", "get_duals_eq", "get_duals_ineq",
+    "get_duals_primals_lb", "get_duals_primals_ub", "get_duals_slacks_lb", "get_duals_slacks_ub",
+    "get_duals_backward", "get_duals_forward", "get_first_stage_values",
+    "get_duals_nonanticipativity",
+)
+RESULT_COUNTS = ("n_primals", "n_eq_constraints", "n_ineq_constraints")
+
+
+def results(iface) -> dict:
+    """What a user reads from a structured interface of either package (the
+    port's or the JAX package's) about its current state, under the JAX
+    package's names: every accessor of ``RESULT_ACCESSORS`` that the
+    interface's kind has (a dict result flattened to "name/key"),
+    ``get_block_primals(i)`` of every block and the counts."""
+    out = {}
+    for name in RESULT_ACCESSORS:
+        if hasattr(iface, name):
+            v = getattr(iface, name)()
+            out.update({f"{name}/{k}": a for k, a in v.items()} if isinstance(v, dict) else {name: v})
+    for i in range(iface.N):
+        out[f"get_block_primals/{i}"] = iface.get_block_primals(i)
+    out.update({name: getattr(iface, name)() for name in RESULT_COUNTS})
+    return out
+
+
+def warm_fields(iface) -> dict:
+    """The warm-start fields of a spec (``x0``, ``c0``, ``y_eq0``, ``lam0``,
+    ``y_ineq0``, ``zl0``, ``zu0``) from a solved dynamic interface's
+    accessors, either package's (tests/test_warmstart_ownership.py)."""
+    duals = iface.get_duals_eq()
+    return dict(x0=iface.get_primals()["blocks"], c0=iface.get_coupling_values(),
+                y_eq0=duals["own"], lam0=duals["link"], y_ineq0=iface.get_duals_ineq(),
+                zl0=iface.get_duals_primals_lb()["blocks"],
+                zu0=iface.get_duals_primals_ub()["blocks"])
+
+
+def result_shapes(iface) -> dict:
+    """{name: shape} of :func:`results` (a count's shape is ())."""
+    return {k: tuple(getattr(v, "shape", ())) for k, v in results(iface).items()}
+
+
 def _objective_gap(iface, result, label, ref=JAX_OBJECTIVE):
     import parapint_tpu_torch as ptt
 
@@ -1143,6 +1252,60 @@ def phase_dense(iface):
     if not (c["K6"] > 0 and c["K6"] == 2 * c["solves"]):
         raise AssertionError(f"K6: {c['K6']} launches for {c['solves']} back solves")
     return c
+
+
+def phase_results(iface, cold):
+    """Phase 4b: what a user reads after phase 4's cold solve, then a warm
+    start from it.  Every accessor's shape equal to the JAX package's
+    (``FLAGSHIP_JAX_SHAPES``), the counts equal to its counts, n_primals ==
+    N n + ncv, the backward and forward duals equal to the link duals times
+    their masks; then a spec warm from the accessors (primals, coupling,
+    own and link duals, inequality and bound duals) solved through the
+    fused driver: optimal at the JAX objective, iterations at or below the
+    cold ones and within 1 of the JAX package's warm count, K1 == 14 x
+    numerics, K6 == 2 x back solves.  Returns (the warm solve's counts,
+    the cold final primals on the CPU)."""
+    import parapint_tpu_torch as ptt
+
+    N, ns = iface.N, iface.ns
+    want = dict(FLAGSHIP_JAX_SHAPES, **{f"get_block_primals/{i}": FLAGSHIP_JAX_BLOCK_SHAPE
+                                        for i in range(N)})
+    shapes = result_shapes(iface)
+    if shapes != want:
+        bad = {k: (shapes.get(k), want.get(k)) for k in set(shapes) | set(want)
+               if shapes.get(k) != want.get(k)}
+        raise AssertionError(f"results: shapes (port, JAX) differ: {bad}")
+    counts = {k: getattr(iface, k)() for k in RESULT_COUNTS}
+    if counts != FLAGSHIP_JAX_COUNTS or counts["n_primals"] != N * iface.n + iface.ncv:
+        raise AssertionError(f"results: counts {counts}, JAX {FLAGSHIP_JAX_COUNTS}")
+    link, mask = iface.get_duals_eq()["link"], iface.link_mask
+    if not (torch.equal(iface.get_duals_backward(), link[:, :ns] * mask[:, :ns])
+            and torch.equal(iface.get_duals_forward(), link[:, ns:] * mask[:, ns:])):
+        raise AssertionError("results: backward/forward duals are not the masked link duals")
+    say(f"results of the dense flagship: {len(shapes)} accessor values, every shape equal to the "
+        f"JAX package's; {counts}")
+    cold_x = {k: v.cpu() for k, v in iface.get_primals().items()}
+
+    t0 = time.perf_counter()
+    fields = warm_fields(iface)
+    warm = ptt.DynamicSchurComplementInteriorPointInterface(
+        dataclasses.replace(iface.spec, **fields), kkt_dtype=torch.float32)
+    state0 = warm.init_state()
+    if not (torch.equal(state0.primals["coupling"], fields["c0"])
+            and torch.equal(state0.duals_eq["own"], fields["y_eq0"])):
+        raise AssertionError("warm start: the warm values did not enter init_state")
+    setup = time.perf_counter() - t0
+    _, c = _counted_solve(warm, _dense_solver("cr"), "warm-started dense flagship", timed=1)
+    say(f"warm-started dense flagship: {c['iterations']} iterations (cold {cold['iterations']}, "
+        f"JAX warm {WARM_JAX_ITERATIONS}), warm spec and interface {setup:.3f} s, numerics "
+        f"{c['numerics']}, back solves {c['solves']}, K1 {c['K1']}, K6 {c['K6']}")
+    if not (c["iterations"] <= cold["iterations"]
+            and abs(c["iterations"] - WARM_JAX_ITERATIONS) <= 1):
+        raise AssertionError(f"warm start: {c['iterations']} iterations, cold {cold['iterations']}, "
+                             f"JAX warm {WARM_JAX_ITERATIONS}")
+    _check("warm start", c["K1"] == DENSE_K1_PER_NUMERIC * c["numerics"]
+           and c["K6"] == 2 * c["solves"], c)
+    return c, cold_x
 
 
 def phase_dense_sc(iface):
@@ -1860,12 +2023,35 @@ def _dense_iface_on(mesh):
         burgers.build_spec(**FLAGSHIP), mesh=mesh, kkt_dtype=torch.float32)
 
 
-def phase_sharded_one_rank(outdir):
+def _serial_on_mesh(iface, cold, cold_x, label, timed=0):
+    """ROADMAP C11: the ``mesh=`` dense flagship ``iface`` through phase
+    4's serial solver, which gathers the rank-local KKT whole on every rank
+    and factors all 64 blocks: optimal at the JAX objective, iterations,
+    objective and K1 launches (per rank) equal to phase 4's, K6 == 2 x back
+    solves.
+    Returns (final primals on the CPU, counts with the largest difference
+    to phase 4's final primals and whether they are bitwise equal)."""
+    x, c = _sharded_solve(iface, _dense_solver("cr"), label, JAX_OBJECTIVE, JAX_DENSE_ITERATIONS,
+                          timed=timed)
+    c["max_dx_to_serial"] = max((x[k] - cold_x[k]).abs().max().item() for k in x)
+    c["bitwise_serial"] = all(torch.equal(x[k], cold_x[k]) for k in x)
+    say(f"{label}: iterations {c['iterations']} (replicated serial run {cold['iterations']}), "
+        f"objective {c['objective']!r} ({cold['objective']!r}), K1 {c['K1']} ({cold['K1']}), "
+        f"max |x - x_serial| {c['max_dx_to_serial']:.3e}, bitwise {c['bitwise_serial']}, "
+        f"counted solve {c['counted_wall_s']:.3f} s")
+    _check(label, c["iterations"] == cold["iterations"] and c["objective"] == cold["objective"]
+           and c["K1"] == cold["K1"] and c["K6"] == 2 * c["solves"] > 0, c)
+    return x, c
+
+
+def phase_sharded_one_rank(outdir, cold, cold_x):
     """Phase 16: one NCCL rank in this process, the dense flagship through
     the sharded solver with the interface replicated and then with
     ``mesh=`` on it (at one rank its range is every block, so the iterates
-    must be equal).  Writes the LD-mode solution for the 2-rank phase to
-    ``outdir``; returns both cases' counts."""
+    must be equal), then the ``mesh=`` interface through phase 4's serial
+    solver (C11; at one rank bitwise equal to phase 4's run).  Writes the
+    LD-mode solution for the 2-rank phase to ``outdir``; returns the
+    cases' counts."""
     from parapint_tpu_torch.parallel import distributed
 
     distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0)
@@ -1891,9 +2077,12 @@ def phase_sharded_one_rank(outdir):
         _check("sharded dense, mesh=, 1 rank", same and c_m["iterations"] == c["iterations"]
                and c_m["K1"] == DENSE_K1_PER_NUMERIC * c_m["numerics"] > 0
                and c_m["K6"] == 2 * c_m["solves"] > 0, c_m)
+        _, c_s = _serial_on_mesh(iface, cold, cold_x,
+                                 "serial solver, mesh= dense flagship, 1 NCCL rank")
+        _check("serial solver, mesh=, 1 rank", c_s["bitwise_serial"], c_s)
     finally:
         distributed.shutdown()
-    return {"dense": c, "dense_mesh": c_m}
+    return {"dense": c, "dense_mesh": c_m, "serial_mesh": c_s}
 
 
 def _replicated_and_mesh(mesh, label, build, make_solver, ref, ref_iters, ok, timed=1,
@@ -1929,7 +2118,8 @@ def _replicated_and_mesh(mesh, label, build, make_solver, ref, ref_iters, ok, ti
 
 def _sharded_rank(rank, world, port, smi, outdir):
     """Phase 17, one rank: every case in turn, its results saved to
-    ``outdir/rank{rank}.pt``."""
+    ``outdir/rank{rank}.pt`` (phase 4's counts and final primals read
+    from ``outdir/serial.pt``)."""
     global SMI
     SMI = f"rank {rank}/{world}, {smi}"
     import parapint_tpu_torch as ptt
@@ -1947,6 +2137,7 @@ def _sharded_rank(rank, world, port, smi, outdir):
             iterates[k], counts[k] = x, c
 
     ld_ref = torch.load(os.path.join(outdir, "ld_one_rank.pt"))
+    cold, cold_x = torch.load(os.path.join(outdir, "serial.pt"))
 
     def ld_mode(iface, _, c_solve):
         x, c = _sharded_ld(mesh, iface)
@@ -2019,6 +2210,13 @@ def _sharded_rank(rank, world, port, smi, outdir):
     def pcg_ok(c):
         _pcg_kernels_ok(c, "PCG with a mesh, 8 blocks")
         return True
+
+    # C11: the mesh= dense flagship through the serial solver
+    iface = _dense_iface_on(mesh)
+    iterates["serial/mesh"], counts["serial/mesh"] = _serial_on_mesh(
+        iface, cold, cold_x, "serial solver, mesh= dense flagship")
+    del iface
+    torch.cuda.empty_cache()
 
     keep("pcg", _replicated_and_mesh(
         mesh, "PCG with a mesh, 8 blocks",
@@ -2101,12 +2299,13 @@ def phase_compat():
         raise AssertionError(f"compat: {status.name}, objective {obj}")
 
 
-def phase_sharded_two_ranks(outdir):
+def phase_sharded_two_ranks(outdir, cold, cold_x):
     """Phase 17: spawn the ranks (the kernels are built already, so they
     only load them), wait for both within SHARDED_TIMEOUT, and require their
     final iterates to be bitwise equal.  Returns each rank's counts."""
     import torch.multiprocessing as mp
 
+    torch.save((cold, cold_x), os.path.join(outdir, "serial.pt"))
     t0 = time.perf_counter()
     ctx = mp.start_processes(_sharded_rank, args=(SHARDED_WORLD, _free_port(), SMI, outdir),
                              nprocs=SHARDED_WORLD, join=False, start_method="spawn")
@@ -2423,6 +2622,7 @@ def main(argv=None):
     lap("kernels and kernel lab")
     iface = _dense_iface()
     dense = phase_dense(iface)
+    warm, cold_x = phase_results(iface, dense)
     dense_sc = phase_dense_sc(iface)
     phase_bf16(iface)
     ld, ld_LD = phase_ld(iface)
@@ -2449,9 +2649,9 @@ def main(argv=None):
     lap("condensed")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as outdir:
-        sharded_one = phase_sharded_one_rank(outdir)
+        sharded_one = phase_sharded_one_rank(outdir, dense, cold_x)
         torch.cuda.empty_cache()
-        sharded_two = phase_sharded_two_ranks(outdir)
+        sharded_two = phase_sharded_two_ranks(outdir, dense, cold_x)
         lap("sharded")
     host_bk = phase_host_bk(single)
     phase_compat()
@@ -2501,7 +2701,7 @@ def main(argv=None):
     # the sharded cases' counts, walls and all-reduce times per rank
     print(json.dumps({"sharded": {"one_rank_nccl": sharded_one,
                                   f"{SHARDED_WORLD}_ranks_gloo": sharded_two},
-                      "host_bk": host_bk}))
+                      "host_bk": host_bk, "warm_start": warm}))
     # the bench tool's runs and the bench_all rows: counts in process, then
     # the tool's lines
     print(json.dumps({"bench": bench, "bench_all_rows": bench_rows,

@@ -134,7 +134,8 @@ class DynamicSchurComplementInteriorPointInterface(StructuredSCInterface):
     rank then evaluates the model and assembles the KKT for its own blocks
     only, for a sharded solver over the same mesh
     (``ShardedSchurComplementSolver``, ``ShardedBandedSchurComplementSolver``,
-    ``PCGSchurComplementSolver(mesh=...)``); see ``structured.py``.
+    ``PCGSchurComplementSolver(mesh=...)``), or for a serial one, which
+    gathers the KKT whole on every rank; see ``structured.py``.
     """
 
     def __init__(
@@ -192,3 +193,15 @@ class DynamicSchurComplementInteriorPointInterface(StructuredSCInterface):
         self.row_idx = torch.as_tensor(row_idx, device=device)
         self.sc_assembly = "chain"
         self._finalize(mesh=mesh, axis_name=axis_name, kkt_dtype=kkt_dtype, block_form=block_form)
+
+    # -- dynamic-specific accessors ----------------------------------------------
+
+    def get_duals_backward(self):
+        """Duals of the backward continuity constraints, (N, num_states)
+        (zero on block 0, which has none)."""
+        return self._current_state.duals_eq["link"][:, : self.ns] * self.link_mask[:, : self.ns]
+
+    def get_duals_forward(self):
+        """Duals of the forward continuity constraints, (N, num_states)
+        (zero on the last block)."""
+        return self._current_state.duals_eq["link"][:, self.ns :] * self.link_mask[:, self.ns :]

@@ -138,8 +138,9 @@ class StochasticSchurComplementInteriorPointInterface(StructuredSCInterface):
     ``block_perm`` maps storage order to the original scenario index, and
     the per-scenario accessors answer in ORIGINAL scenario order.  With a
     ``mesh`` each rank evaluates the model and assembles the KKT for its own
-    (contiguous) scenarios only, for a sharded solver over the same mesh;
-    the iterate stays whole on every rank (see ``structured.py``).
+    (contiguous) scenarios only, for a sharded solver over the same mesh
+    (or a serial one, which gathers the KKT whole); the iterate stays whole
+    on every rank (see ``structured.py``).
     """
 
     def __init__(self, spec: StochasticModelSpec, mesh=None, axis_name: str = "blocks",
@@ -214,6 +215,32 @@ class StochasticSchurComplementInteriorPointInterface(StructuredSCInterface):
     def get_duals_nonanticipativity(self):
         """(N, L) nonanticipativity duals, in ORIGINAL scenario order."""
         return self._deperm(self._current_state.duals_eq["link"])
+
+    def get_slacks(self):
+        return self._deperm(self._current_state.slacks)
+
+    def get_duals_eq(self):
+        """{"own": (N, me), "link": (N, L)}, in ORIGINAL scenario order."""
+        d = self._current_state.duals_eq
+        return {"own": self._deperm(d["own"]), "link": self._deperm(d["link"])}
+
+    def get_duals_ineq(self):
+        return self._deperm(self._current_state.duals_ineq)
+
+    def _deperm_bound_duals(self, d):
+        return {"blocks": self._deperm(d["blocks"]), "coupling": d["coupling"]}
+
+    def get_duals_primals_lb(self):
+        return self._deperm_bound_duals(self._current_state.duals_primals_lb)
+
+    def get_duals_primals_ub(self):
+        return self._deperm_bound_duals(self._current_state.duals_primals_ub)
+
+    def get_duals_slacks_lb(self):
+        return self._deperm(self._current_state.duals_slacks_lb)
+
+    def get_duals_slacks_ub(self):
+        return self._deperm(self._current_state.duals_slacks_ub)
 
 
 def _storage_order(N: int, ownership_map, mesh, axis_name: str) -> np.ndarray:

@@ -33,8 +33,13 @@ convergence check, the merit and the step read (per-block objective,
 gradient, J^T y, residuals) are gathered exactly into it, in one
 all-reduce per AD sweep and one per merit evaluation, so every rank takes
 every branch alike.  The KKT and rhs that reach the solver are the rank's
-part (``LocalBlockKKT.global_blocks``): a sharded solver over the same
-mesh takes them, a serial one raises.
+part (``LocalBlockKKT.global_blocks``, with the mesh axis in ``axis``): a
+sharded solver over the same mesh takes them as they are, a serial one
+gathers them whole on every rank and solves the whole system there.
+
+The accessors (``get_primals``, ``get_slacks``, ``get_duals_*`` ...) read
+the current iterate under the JAX package's names, types and shapes; with a
+mesh it is whole on every rank, and so is what they return.
 """
 
 import dataclasses
@@ -315,6 +320,16 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         """(N, n_link, nk) local border strips of the dense block form."""
         return self._border_loc
 
+    def n_primals(self) -> int:
+        return self.N * self.n + self.ncv
+
+    def n_eq_constraints(self) -> int:
+        """Includes the coupling (link) constraints."""
+        return self.n_eq_real
+
+    def n_ineq_constraints(self) -> int:
+        return self.n_ineq_real
+
     @property
     def n_duals_eq(self) -> int:
         return self.n_eq_real
@@ -335,8 +350,35 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
     def get_primals(self):
         return self._current_state.primals
 
+    def get_block_primals(self, ndx: int):
+        return self._current_state.primals["blocks"][ndx]
+
     def get_coupling_values(self):
         return self._current_state.primals["coupling"]
+
+    def get_slacks(self):
+        return self._current_state.slacks
+
+    def get_duals_eq(self):
+        """{"own": (N, me), "link": (N, n_link)}: the blocks' own equality
+        duals and their link rows' duals."""
+        return self._current_state.duals_eq
+
+    def get_duals_ineq(self):
+        return self._current_state.duals_ineq
+
+    def get_duals_primals_lb(self):
+        """{"blocks": (N, n), "coupling": (ncv,)}"""
+        return self._current_state.duals_primals_lb
+
+    def get_duals_primals_ub(self):
+        return self._current_state.duals_primals_ub
+
+    def get_duals_slacks_lb(self):
+        return self._current_state.duals_slacks_lb
+
+    def get_duals_slacks_ub(self):
+        return self._current_state.duals_slacks_ub
 
     def evaluate_objective(self):
         """The whole problem's objective (with a mesh: every rank calls it,
@@ -693,11 +735,12 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         diagonals, ``c_reg`` sets the real constraint diagonals to -c_reg,
         and the coupling block is Q = c_reg * I.  A ``LocalBlockKKT``
         (dense) or a ``BandedLocalBlockKKT`` (banded); with a mesh, of the
-        rank's blocks (``global_blocks`` and ``block_offset`` set)."""
+        rank's blocks (``global_blocks``, ``block_offset`` and ``axis``
+        set)."""
         data = data_and_rhs[0]
         v = self._view
         lo, hi = self.block_range
-        part = {} if self.axis is None else dict(global_blocks=self.N, block_offset=lo)
+        part = {} if self.axis is None else dict(global_blocks=self.N, block_offset=lo, axis=self.axis)
         if self.block_form == "dense":
             diag = assemble_block_diag(
                 data, v.eq_mask, v.ineq_mask, v.x_mask, v.link_rows, v.link_mask, w_reg, c_reg,

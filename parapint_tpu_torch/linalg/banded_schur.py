@@ -40,7 +40,9 @@ from parapint_tpu_torch.linalg.schur import (
     _chain_tiles,
     _factor_blocks_winv,
     _tile_sc,
-    require_whole,
+    gather_kkt,
+    gather_rhs,
+    serial_factor,
     shard_kkt,
 )
 from parapint_tpu_torch.linalg.tridiag import BlockTridiagSolver, _winv_to_inverse
@@ -63,7 +65,7 @@ class BandedLocalBlockKKT:
     mask:       (N,) 1.0 for logical blocks
     perm/iperm: (nk,) permutation (permuted index i holds original perm[i])
     assembly:   SC topology ("chain" / "scatter" / "shared")
-    global_blocks / block_offset: a rank's part, as for ``LocalBlockKKT``
+    global_blocks / block_offset / axis: a rank's part, as for ``LocalBlockKKT``
     """
 
     sym_bands: torch.Tensor
@@ -76,6 +78,7 @@ class BandedLocalBlockKKT:
     assembly: str = "scatter"
     global_blocks: Optional[int] = None
     block_offset: int = 0
+    axis: Optional[BlockAxis] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +179,9 @@ class BandedSchurFactor:
     group_offset: int = 0
     # the KKT's global_blocks (a rank-local KKT: the rhs is rank-local too)
     global_blocks: Optional[int] = None
+    # a serial solver's factor of a gathered rank-local KKT: the axis over
+    # which each rhs is gathered (``schur.gather_rhs``)
+    rhs_axis: Optional[BlockAxis] = None
 
 
 def tridiag_tiles_matvec(diag_t, upper_t, x):
@@ -214,7 +220,9 @@ class BandedSchurComplementSolver(LinearSolver):
     ORIGINAL variable ordering (:class:`BlockRhs`), the permutation is
     applied internally by index gathers.  The coupling solver defaults to
     ``DenseLDLSolver(refine_steps=0)``.  ``n_numeric`` counts numeric
-    factorizations.
+    factorizations.  A rank-local KKT (an interface built with ``mesh=``)
+    and the rhs of its solves are gathered whole on every rank
+    (``schur.gather_kkt``), as for ``SchurComplementSolver``.
     """
 
     # process group over which a sharded solver sums the coupling parts of
@@ -265,10 +273,10 @@ class BandedSchurComplementSolver(LinearSolver):
             raise ValueError(f"KKT on {dev}, solver built for {self.device}")
 
     def numeric(self, kkt: BandedLocalBlockKKT) -> BandedSchurFactor:
-        require_whole(kkt, self)
         self._check_device(kkt)
         self.n_numeric += 1
-        return self._numeric(kkt, 0, kkt.sym_bands.shape[0])
+        whole = gather_kkt(kkt)
+        return serial_factor(self._numeric(whole, 0, whole.sym_bands.shape[0]), kkt)
 
     def _numeric(self, kkt: BandedLocalBlockKKT, lo: int, hi: int) -> BandedSchurFactor:
         """Factor the global blocks [lo, hi) of ``kkt`` (held from its
@@ -460,10 +468,10 @@ class BandedSchurComplementSolver(LinearSolver):
         return x, ~need
 
     def solve(self, fact: BandedSchurFactor, rhs: BlockRhs) -> BlockRhs:
-        return self._solve_refined(fact, rhs)[0]
+        return self._solve_refined(fact, gather_rhs(fact, rhs))[0]
 
     def solve_with_status(self, fact: BandedSchurFactor, rhs: BlockRhs):
-        x, ok = self._solve_refined(fact, rhs)
+        x, ok = self._solve_refined(fact, gather_rhs(fact, rhs))
         bad = torch.where(
             ok, int(LinearSolverStatus.successful), int(LinearSolverStatus.error)
         ).to(torch.int32)

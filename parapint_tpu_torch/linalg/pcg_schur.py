@@ -48,8 +48,10 @@ from parapint_tpu_torch.linalg.schur import (
     _winv_apply_batched,
     _winv_multi,
     block_range,
+    gather_kkt,
+    gather_rhs,
     pad_block_count,
-    require_whole,
+    serial_factor,
     shard_kkt,
 )
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_rows
@@ -74,6 +76,9 @@ class PCGSchurFactor:
     nk: int
     nc: int
     global_blocks: Optional[int] = None  # the KKT's: set when it was rank-local
+    # without a mesh, of a gathered rank-local KKT: the axis over which each
+    # rhs is gathered (``schur.gather_rhs``)
+    rhs_axis: Optional[BlockAxis] = None
 
 
 class PCGSchurComplementSolver(LinearSolver):
@@ -87,7 +92,9 @@ class PCGSchurComplementSolver(LinearSolver):
     each, plus one per CG iteration) and ``cg_iterations`` lists the CG
     iterations of each back solve.  ``mesh`` (a 1-D ``DeviceMesh`` holding
     this rank) splits the blocks over the ranks of ``axis_name``; the counts
-    are then this rank's.
+    are then this rank's.  Without a mesh, a rank-local KKT (an interface
+    built with ``mesh=``) and the rhs of its solves are gathered whole on
+    every rank (``schur.gather_kkt``), which then solves the whole system.
     """
 
     def __init__(self, mesh=None, axis_name: str = "blocks", block_size: int = 128,
@@ -107,12 +114,15 @@ class PCGSchurComplementSolver(LinearSolver):
 
     def numeric(self, kkt: LocalBlockKKT) -> PCGSchurFactor:
         self.n_numeric += 1
-        nc = kkt.q.shape[-1]
         if self.axis is None:
-            require_whole(kkt, self)
-        else:
-            # any block count: masked identity blocks pad it
-            kkt = block_range(*shard_kkt(kkt, self.axis, pad_block_count))
+            return serial_factor(self._numeric(gather_kkt(kkt)), kkt)
+        # any block count: masked identity blocks pad it
+        return self._numeric(block_range(*shard_kkt(kkt, self.axis, pad_block_count)))
+
+    def _numeric(self, kkt: LocalBlockKKT) -> PCGSchurFactor:
+        """Factor the blocks of ``kkt`` (this rank's with a mesh); the
+        Jacobi diagonal, inertia and status are summed over the group."""
+        nc = kkt.q.shape[-1]
         W, d, s, inertia, status = _factor_blocks_winv(
             kkt.diag, kkt.mask, self.block_size, self.factor_dtype
         )
@@ -182,6 +192,7 @@ class PCGSchurComplementSolver(LinearSolver):
         correction engages; CG_MAXITER iterations without convergence map to
         ``error``."""
         self.n_solves += 1
+        rhs = gather_rhs(fact, rhs)
         blocks = rhs.blocks
         if self.axis is not None:
             # this rank's rows of the rhs padded like the factor

@@ -47,7 +47,7 @@ from parapint_tpu_torch.ops.ldl import (
 )
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_pairs, scatter_add_rows
 from parapint_tpu_torch.ops.winv_apply import winv_apply_fused, winv_apply_plain
-from parapint_tpu_torch.parallel.mesh import all_reduce_max, all_reduce_sum
+from parapint_tpu_torch.parallel.mesh import BlockAxis, all_reduce_max, all_reduce_sum
 
 # adaptive refinement: passes run while the float32 residual exceeds
 # REFINE_TRIGGER * ||rhs|| (and the probe's noise floor), at most
@@ -93,7 +93,9 @@ class LocalBlockKKT:
     rank's part (an interface built with a mesh): the whole problem has
     ``global_blocks`` blocks and this KKT holds its blocks
     [block_offset, block_offset + N), the rank's range of
-    ``BlockAxis.local_range``; only a sharded solver takes it."""
+    ``BlockAxis.local_range`` of ``axis``, the mesh axis it came from.  A
+    sharded solver over that axis factors the part as it is; a serial
+    solver gathers it whole first (:func:`gather_kkt`)."""
 
     diag: torch.Tensor
     border_loc: torch.Tensor
@@ -103,10 +105,11 @@ class LocalBlockKKT:
     assembly: str = "scatter"
     global_blocks: Optional[int] = None
     block_offset: int = 0
+    axis: Optional[BlockAxis] = None
 
     @staticmethod
     def make(diag, border_loc, row_idx, q, mask=None, assembly="scatter", global_blocks=None,
-             block_offset=0) -> "LocalBlockKKT":
+             block_offset=0, axis=None) -> "LocalBlockKKT":
         if mask is None:
             mask = torch.ones(diag.shape[0], dtype=diag.dtype, device=diag.device)
         return LocalBlockKKT(
@@ -118,6 +121,7 @@ class LocalBlockKKT:
             assembly=assembly,
             global_blocks=global_blocks,
             block_offset=block_offset,
+            axis=axis,
         )
 
 
@@ -147,6 +151,9 @@ class SchurFactor:
     # the KKT's global_blocks: set when it was rank-local, so the rhs of a
     # solve is rank-local too
     global_blocks: Optional[int] = None
+    # set when a serial solver gathered a rank-local KKT whole: the axis
+    # over which each rank-local rhs is gathered (``gather_rhs``)
+    rhs_axis: Optional[BlockAxis] = None
 
 
 def pad_block_count(kkt, multiple: int):
@@ -218,16 +225,42 @@ def shard_kkt(kkt, axis, pad):
     return kkt, lo, hi
 
 
-def require_whole(kkt, solver):
-    """A serial solver's guard: a rank-local KKT (an interface with a mesh)
-    needs a solver that runs over the same mesh."""
-    if getattr(kkt, "global_blocks", None) is not None:
-        raise ValueError(
-            f"{type(solver).__name__} got one rank's part of a KKT (its interface was built "
-            "with mesh=): solve it with ShardedSchurComplementSolver, "
-            "ShardedBandedSchurComplementSolver or PCGSchurComplementSolver(mesh=...) over "
-            "the same mesh"
-        )
+def gather_kkt(kkt):
+    """A serial solver's view of a KKT: a rank-local one (``global_blocks``
+    set: an interface built with a mesh) gathered whole, the same on every
+    rank, in block order over its ``axis`` (``BlockAxis.gather_rows``,
+    exact); a whole one as it is.  The float tensors go in one all-reduce
+    and the row indices in another, which keeps them integers.  The
+    gathered KKT holds exactly ``global_blocks`` blocks, so it keeps the
+    interface's ``assembly``.  Works for a ``LocalBlockKKT`` and a
+    ``BandedLocalBlockKKT`` (``sym_bands`` in place of ``diag``)."""
+    N = getattr(kkt, "global_blocks", None)
+    if N is None:
+        return kkt
+    name = "sym_bands" if hasattr(kkt, "sym_bands") else "diag"
+    blocks, border_loc, mask = kkt.axis.gather_rows([getattr(kkt, name), kkt.border_loc, kkt.mask], N)
+    (row_idx,) = kkt.axis.gather_rows([kkt.row_idx], N)
+    return dataclasses.replace(
+        kkt, **{name: blocks}, border_loc=border_loc, row_idx=row_idx, mask=mask,
+        global_blocks=None, block_offset=0, axis=None,
+    )
+
+
+def serial_factor(fact, kkt):
+    """A serial solver's factor of ``gather_kkt(kkt)``, marked so that its
+    solves gather their rank-local rhs when ``kkt`` was rank-local."""
+    if getattr(kkt, "global_blocks", None) is None:
+        return fact
+    return dataclasses.replace(fact, global_blocks=kkt.global_blocks, rhs_axis=kkt.axis)
+
+
+def gather_rhs(fact, rhs: BlockRhs) -> BlockRhs:
+    """The whole rhs for a factor of a gathered KKT (``fact.rhs_axis`` set):
+    the rank's block rows gathered over that axis; else ``rhs``.  The
+    coupling part is whole on every rank already."""
+    if fact.rhs_axis is None:
+        return rhs
+    return BlockRhs(fact.rhs_axis.gather_blocks(rhs.blocks, fact.global_blocks), rhs.coupling)
 
 
 def _inertia_status(d: torch.Tensor, nk: int, mask: torch.Tensor):
@@ -568,6 +601,11 @@ class SchurComplementSolver(LinearSolver):
     ``n_numeric`` counts numeric factorizations,
     ``n_solves`` back solves through the Schur complement (two block
     applies each) and ``n_gate_fallbacks`` the retries on the full W.
+
+    A rank-local KKT (an interface built with ``mesh=``) is gathered whole
+    on every rank (:func:`gather_kkt`), and so is the rhs of each solve:
+    every rank factors and solves the whole system and returns the whole
+    solution, as a sharded solver does.
     """
 
     # process group over which a sharded solver sums the coupling parts of
@@ -629,9 +667,9 @@ class SchurComplementSolver(LinearSolver):
         return LinearSolverResults(status=LinearSolverStatus.successful)
 
     def numeric(self, kkt) -> SchurFactor:
-        require_whole(kkt, self)
         self.n_numeric += 1
-        return self._numeric(kkt, 0, kkt.diag.shape[0])
+        whole = gather_kkt(kkt)
+        return serial_factor(self._numeric(whole, 0, whole.diag.shape[0]), kkt)
 
     def _numeric(self, kkt, lo: int, hi: int) -> SchurFactor:
         """Factor the blocks [lo, hi) of ``kkt``; their Schur-complement
@@ -792,10 +830,10 @@ class SchurComplementSolver(LinearSolver):
         return x, torch.ones((), dtype=torch.bool, device=x.blocks.device)
 
     def solve(self, fact: SchurFactor, rhs: BlockRhs) -> BlockRhs:
-        return self._solve_refined(fact, rhs)[0]
+        return self._solve_refined(fact, gather_rhs(fact, rhs))[0]
 
     def solve_with_status(self, fact: SchurFactor, rhs: BlockRhs):
-        x, ok = self._solve_refined(fact, rhs)
+        x, ok = self._solve_refined(fact, gather_rhs(fact, rhs))
         bad = torch.where(
             ok, int(LinearSolverStatus.successful), int(LinearSolverStatus.error)
         ).to(torch.int32)

@@ -1,16 +1,16 @@
 """Sharded solvers of the PyTorch port on gloo CPU ranks vs the JAX package's
 sharded solvers on a mesh of as many virtual CPU devices.
 
-For each world size P in (2, 4) one module-scoped launch starts P rank
-processes (this file run as a script: it imports torch, numpy and the port,
-never jax).  Each rank joins a gloo process group, runs every case below in
-turn and writes its results to ``rank{r}.npz``; while they run, the pytest
-process computes the JAX references: the random systems' on
-``Mesh(jax.devices()[:P])``, the others once, on 2 devices, for both world
-sizes (a sharded answer does not depend on the device count beyond
-rounding).  The parametrised tests then compare.  The inputs that are not
-regenerated from a seed (the Burgers KKTs) are built by the JAX package and handed to the ranks
-in ``inputs.npz``.
+For each world size P in (2, 4) one launch starts P rank processes (this
+file run as a script: it imports torch, numpy and the port, never jax);
+both launches start together, once the JAX first KKTs are written.  Each
+rank joins a gloo process group, runs every case below in turn and writes
+its results to ``rank{r}.npz``; while they run, the pytest process
+computes the JAX references once, on 2 devices, for both world sizes (a
+sharded answer does not depend on the device count beyond rounding), in
+a few threads side by side.  The parametrised tests then compare.  The
+inputs that are not regenerated from a seed (the Burgers KKTs) are built
+by the JAX package and handed to the ranks in ``inputs.npz``.
 
 Cases and their references (tolerances are the JAX package's own tests'):
 - the random systems of ``tests/test_schur.py`` through
@@ -50,7 +50,16 @@ Cases and their references (tolerances are the JAX package's own tests'):
   against their replicated-iterate runs; the flagship as two kinds and the
   QP with its ownership map against the port's serial solves
   (SERIAL_RTOL); each rank's model calls counted on its own blocks;
-- a mesh= interface handed a serial solver raises (one rank in process);
+- C11: the same interface with mesh= handed each serial solver (dense,
+  banded, PCG without a mesh), which gathers the rank-local KKT whole on
+  every rank: the gathered first KKT equal to the replicated interface's,
+  the solve against the JAX package's mesh= interface with the same solver
+  (status, iterations within 1, objective 1e-6; once, on 2 devices) and
+  the replicated interface's run (equal iterations, MESH_ATOL); one numeric
+  and one solve of the float64 mesh= KKT through the serial and the
+  sharded solver (inertia equal, solutions within 1e-11);
+- the QP's accessors under its ownership map from one seeded state,
+  bitwise equal to the JAX package's interface on P devices;
 - every array a rank wrote, but the per-rank ones, is bitwise equal on all
   ranks.
 
@@ -62,6 +71,7 @@ import socket
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -70,7 +80,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 WORLDS = (2, 4)
-LAUNCH_TIMEOUT = 400  # seconds for one launch's ranks to finish every case
+LAUNCH_TIMEOUT = 400  # seconds for the ranks of both launches to finish every case
 RANDOM_SYSTEMS = ((8, 12, 5), (16, 8, 3))
 NLPS = {8: dict(nfe_x=8, nfe_t=16, num_time_blocks=8), 11: dict(nfe_x=8, nfe_t=22, num_time_blocks=11)}
 # solver-level and fused cases: (block form, NLP)
@@ -89,6 +99,8 @@ OBJ_REL_GAP = 1e-6
 MESH_ATOL = 1e-10
 # against the port's serial solver (another factorization order)
 SERIAL_RTOL = 1e-6
+# the serial solvers handed a mesh= interface's rank-local KKT (ROADMAP C11)
+SERIAL_SOLVERS = ("dense", "banded", "pcg")
 
 
 def make_system(N=4, nk=12, nc=5, seed=0):
@@ -147,6 +159,52 @@ def burgers_solver(pkg, mesh, case, ns, f32=None):
     )
 
 
+def seeded_state(iface, seed) -> dict:
+    """An iterate of standard normal draws in ``iface``'s shapes (either
+    package's structured interface) as the JAX package's ``IPState``
+    pytree of numpy arrays: the same state for both packages
+    (``convert.ipstate_from_numpy``)."""
+    rng = np.random.default_rng(seed)
+    N, n, me, mi, L, nc = iface.N, iface.n, iface.me, iface.mi, iface.n_link, iface.ncv
+    d = lambda *shape: rng.standard_normal(shape)
+    return dict(
+        primals={"blocks": d(N, n), "coupling": d(nc)}, slacks=d(N, mi),
+        duals_eq={"own": d(N, me), "link": d(N, L)}, duals_ineq=d(N, mi),
+        duals_primals_lb={"blocks": d(N, n), "coupling": d(nc)},
+        duals_primals_ub={"blocks": d(N, n), "coupling": d(nc)},
+        duals_slacks_lb=d(N, mi), duals_slacks_ub=d(N, mi),
+    )
+
+
+def serial_solver(pkg, name, ns, f32):
+    """A serial solver of either package for the 8-block Burgers NLP: the
+    dense flagship's, the banded flagship's or PCG without a mesh."""
+    if name == "banded":
+        return pkg.BandedSchurComplementSolver(schur_complement_solver=pkg.BlockTridiagSolver(ns=ns))
+    if name == "pcg":
+        return pkg.PCGSchurComplementSolver(block_size=128, factor_dtype=f32)
+    return pkg.SchurComplementSolver(block_size=128, explicit_inverse=True, factor_dtype=f32,
+                                     schur_complement_solver=pkg.BlockTridiagSolver())
+
+
+def serial_iface(ptt, burgers, name, mesh=None):
+    """The port's 8-block Burgers interface (float32 KKT) in the block form
+    of serial solver ``name``, with ``mesh=`` when one is given."""
+    return ptt.DynamicSchurComplementInteriorPointInterface(
+        burgers.build_spec(**NLPS[8], device="cpu"), mesh=mesh, kkt_dtype=torch.float32,
+        block_form="banded" if name == "banded" else "dense")
+
+
+def kkt_fields(kkt) -> dict:
+    """A whole Local/BandedLocalBlockKKT's block tensors as numpy (the
+    dtypes kept), its assembly and whether it is rank-local."""
+    names = ("sym_bands", "perm", "iperm") if hasattr(kkt, "sym_bands") else ("diag",)
+    out = {f: getattr(kkt, f).numpy() for f in names + ("border_loc", "row_idx", "q", "mask")}
+    out["assembly"] = np.array(kkt.assembly)
+    out["rank_local"] = np.array(kkt.global_blocks is not None)
+    return out
+
+
 def _count_blocks(iface) -> set:
     """The block counts of every batched model call the interface makes
     from now on (its model functions wrapped)."""
@@ -177,8 +235,9 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
     import parapint_tpu_torch as ptt
     from parapint_tpu_torch.examples import burgers, stochastic
     from parapint_tpu_torch.examples.performance import schur_complement as perf
+    from parapint_tpu_torch.convert import ipstate_from_numpy
     from parapint_tpu_torch.linalg.banded_schur import BandedLocalBlockKKT
-    from parapint_tpu_torch.linalg.schur import BlockKKT, BlockRhs, LocalBlockKKT
+    from parapint_tpu_torch.linalg.schur import BlockKKT, BlockRhs, LocalBlockKKT, gather_kkt
     from parapint_tpu_torch.parallel import distributed
 
     import chip_smoke
@@ -306,6 +365,29 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
                                          factor_dtype=torch.float32,
                                          schur_complement_solver=ptt.BlockTridiagSolver()))
 
+    # C11: the mesh= interface through a serial solver, which gathers the
+    # rank-local KKT whole on every rank
+    mu = torch.tensor(0.1, dtype=torch.float64)
+    for name in SERIAL_SOLVERS:
+        iface = serial_iface(ptt, burgers, name, mesh)
+        kkt = gather_kkt(iface.assemble_kkt(iface.eval_kkt_data(iface.init_state(), mu), 0.0, 0.0))
+        out.update({f"serial/{name}/kkt/{k}": v for k, v in kkt_fields(kkt).items()})
+        mesh_solve(f"serial/{name}", iface, serial_solver(ptt, name, iface.ns, torch.float32))
+    # one numeric and one solve, the serial against the sharded solver, on
+    # the same mesh= KKT (float64; tests/test_banded.py's single step)
+    for form in ("dense", "banded"):
+        iface = ptt.DynamicSchurComplementInteriorPointInterface(
+            burgers.build_spec(**NLPS[8], device="cpu"), mesh=mesh, block_form=form)
+        data = iface.eval_kkt_data(iface.init_state(), mu)
+        kkt, rhs = iface.assemble_kkt(data, 0.0, 0.0), iface.kkt_rhs(data)
+        pair = ((ptt.BandedSchurComplementSolver(), ptt.ShardedBandedSchurComplementSolver(mesh))
+                if form == "banded" else
+                (ptt.SchurComplementSolver(), ptt.ShardedSchurComplementSolver(mesh, "blocks")))
+        for kind, solver in zip(("serial", "sharded"), pair):
+            fact = solver.numeric(kkt)
+            x, status = solver.solve_with_status(fact, rhs)
+            keep(f"step/{form}/{kind}", x, fact, solver, status)
+
     # the stochastic QP with a non-trivial ownership map
     own = OWNERSHIP[world]
     iface = ptt.StochasticSchurComplementInteriorPointInterface(
@@ -330,6 +412,13 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
     out["qp/lam"] = iface.get_duals_nonanticipativity().numpy()
     out["qp/raw_lam"] = iface._current_state.duals_eq["link"].numpy()
     out["qp/first_stage"] = iface.get_first_stage_values().numpy()
+    # every accessor from one seeded state (in storage order)
+    iface._current_state = ipstate_from_numpy(seeded_state(iface, seed=5), "cpu")
+    for name, v in chip_smoke.results(iface).items():
+        out["acc/" + name] = np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v)
+    out["acc/raw_blocks"] = iface._current_state.primals["blocks"].numpy()
+    out["acc/raw_ineq"] = iface._current_state.duals_ineq.numpy()
+    out["acc/raw_lb"] = iface._current_state.duals_primals_lb["blocks"].numpy()
     serial = ptt.StochasticSchurComplementInteriorPointInterface(
         stochastic.qp_spec(**QP_SMALL, device="cpu"), kkt_dtype=torch.float32)
     opts.linalg.solver = ptt.SchurComplementSolver(
@@ -383,30 +472,37 @@ def _free_port() -> int:
 
 
 def _launch(world: int, workdir: Path):
+    """The ranks of one world size, each writing its output to
+    ``rank{r}.log`` in ``workdir``."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")])
     port = _free_port()
-    return [
-        subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), str(r), str(world), str(port), str(workdir)],
-            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for r in range(world)
-    ]
+    procs = []
+    for r in range(world):
+        with open(workdir / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), str(r), str(world), str(port),
+                 str(workdir)],
+                cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+            ))
+    return procs
 
 
-def _wait(procs, deadline: float):
-    outs = []
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _wait(procs, workdir: Path, deadline: float):
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, o) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{o[-6000:]}"
+        _kill(procs)
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} failed:\n{(workdir / f'rank{r}.log').read_text()[-6000:]}"
 
 
 def _jax_mesh(P):
@@ -418,20 +514,39 @@ def _jax_mesh(P):
     return Mesh(np.array(jax.devices()[:P]), ("blocks",))
 
 
-def _jax_first_kkts():
-    """The first KKT (initial state, barrier 0.1, float64) of each CASE from
-    the JAX package, as numpy: the ranks' solver-level inputs."""
+# threads that trace, compile and run the JAX references side by side (XLA
+# compiles outside the interpreter lock)
+JAX_THREADS = 4
+
+
+def _in_threads(tasks: dict, here: dict = None) -> dict:
+    """{key: fn(*args)} for ``tasks`` {key: (fn, *args)}, run in JAX_THREADS
+    threads, and for ``here`` (the same form) run in this thread meanwhile
+    (torch's forward AD keeps its levels per thread); every result is read,
+    so a task's exception is raised here."""
+    with ThreadPoolExecutor(JAX_THREADS) as pool:
+        futures = {key: pool.submit(*task) for key, task in tasks.items()}
+        done = {key: fn(*args) for key, (fn, *args) in (here or {}).items()}
+        return {**done, **{key: f.result() for key, f in futures.items()}}
+
+
+def _jax_first_kkt(case):
+    """The first KKT (initial state, barrier 0.1, float64) of ``case`` from
+    the JAX package, with its rhs: a rank's solver-level input."""
     import parapint_tpu as pt
     from parapint_tpu.examples import burgers as jburgers
 
-    kkts = {}
-    for case, (form, nlp) in CASES.items():
-        iface = pt.DynamicSchurComplementInteriorPointInterface(
-            jburgers.build_spec(**NLPS[nlp]), block_form=form
-        )
-        data = iface.eval_kkt_data(iface.init_state(), 0.1)
-        kkts[case] = (iface.assemble_kkt(data, 0.0, 0.0), iface.kkt_rhs(data))
-    return kkts
+    form, nlp = CASES[case]
+    iface = pt.DynamicSchurComplementInteriorPointInterface(
+        jburgers.build_spec(**NLPS[nlp]), block_form=form
+    )
+    data = iface.eval_kkt_data(iface.init_state(), 0.1)
+    return iface.assemble_kkt(data, 0.0, 0.0), iface.kkt_rhs(data)
+
+
+def _jax_first_kkts():
+    """{case: (kkt, rhs)} of every CASE."""
+    return _in_threads({case: (_jax_first_kkt, case) for case in CASES})
 
 
 def _jax_fused(mesh, case, f32):
@@ -445,6 +560,24 @@ def _jax_fused(mesh, case, f32):
     opts = pt.IPOptions()
     opts.tol = TOL
     opts.linalg.solver = burgers_solver(pt, mesh, case, iface.ns, f32)
+    status, res = pt.ip_solve_fused(iface, opts)
+    return status.value, int(res.iterations), float(iface.evaluate_objective())
+
+
+def _jax_serial_on_mesh(mesh, name):
+    """The JAX package's mesh= interface on the 8-block NLP through the
+    serial solver ``name`` (XLA gathers the sharded KKT for it): (status,
+    iterations, objective) of its fused solve."""
+    import jax.numpy as jnp
+    import parapint_tpu as pt
+    from parapint_tpu.examples import burgers as jburgers
+
+    iface = pt.DynamicSchurComplementInteriorPointInterface(
+        jburgers.build_spec(**NLPS[8]), mesh=mesh, kkt_dtype=jnp.float32,
+        block_form="banded" if name == "banded" else "dense")
+    opts = pt.IPOptions()
+    opts.tol = TOL
+    opts.linalg.solver = serial_solver(pt, name, iface.ns, jnp.float32)
     status, res = pt.ip_solve_fused(iface, opts)
     return status.value, int(res.iterations), float(iface.evaluate_objective())
 
@@ -486,33 +619,60 @@ def _jax_random(mesh):
     return refs
 
 
-def _jax_shared(kkts):
-    """The references held against every world size, computed once on a
-    2-device mesh (the answers do not depend on the device count beyond
-    rounding): the random systems (``_jax_random``), the Burgers first KKTs
-    through the sharded dense, banded and PCG solvers, the fused solves,
-    the QP with ownership, psc and csc."""
+def _jax_qp_ownership(mesh):
+    """The JAX sharded fused solve of the QP with ``OWNERSHIP[2]``: ((status,
+    iterations, objective), the per-scenario primals in original order)."""
+    import jax.numpy as jnp
+    import parapint_tpu as pt
+
+    import bench_all
+
+    iface = pt.StochasticSchurComplementInteriorPointInterface(
+        bench_all.stochastic_qp(**QP_SMALL).spec, mesh=mesh, kkt_dtype=jnp.float32,
+        ownership_map=OWNERSHIP[2]
+    )
+    opts = pt.IPOptions()
+    opts.tol = TOL
+    opts.linalg.solver = pt.ShardedSchurComplementSolver(
+        mesh, "blocks", block_size=128, explicit_inverse=True, factor_dtype=jnp.float64,
+        apply_dtype=jnp.float32,
+    )
+    status, res = pt.ip_solve_fused(iface, opts)
+    primals = np.stack(
+        [np.asarray(iface.get_block_primals(i)) for i in range(QP_SMALL["n_scenarios"])]
+    )
+    return (status.value, int(res.iterations), float(iface.evaluate_objective())), primals
+
+
+def _jax_kkt_solve(mesh, case, kkts):
+    """The JAX sharded solver of ``case`` (or PCG with a mesh, on dense8's)
+    on its first KKT, numeric and solve under ``jax.jit``."""
+    import jax
+    import parapint_tpu as pt
+
+    refs = {}
+    if case == "pcg":
+        kkt, rhs = kkts["dense8"]
+        solver = pt.PCGSchurComplementSolver(mesh, "blocks", block_size=128)
+    else:
+        kkt, rhs = kkts[case]
+        solver = burgers_solver(pt, mesh, case, kkt.border_loc.shape[1] // 2)
+    fact = jax.jit(solver.numeric)(kkt)
+    x, status = jax.jit(solver.solve_with_status)(fact, rhs)
+    _keeper(refs)(case if case == "pcg" else f"kkt/{case}", x, solver, fact, status)
+    return refs
+
+
+def _jax_harness(mesh):
+    """The harness's psc (its sharded solver on its KKT) and csc with a mesh,
+    under jit."""
     import jax
     import jax.numpy as jnp
     import parapint_tpu as pt
     from parapint_tpu.examples.performance import schur_complement as jperf
     from parapint_tpu.linalg import CondensedLSQKKT as JCondensedKKT
 
-    import bench_all
-
-    mesh = _jax_mesh(2)
-    refs = _jax_random(mesh)
-    keep = _keeper(refs)
-    solvers = {case: burgers_solver(pt, mesh, case, kkt.border_loc.shape[1] // 2)
-               for case, (kkt, _) in kkts.items()}
-    solvers["pcg"] = pt.PCGSchurComplementSolver(mesh, "blocks", block_size=128)
-    for case, solver in solvers.items():
-        kkt, rhs = kkts["dense8" if case == "pcg" else case]
-        fact = jax.jit(solver.numeric)(kkt)
-        x, status = jax.jit(solver.solve_with_status)(fact, rhs)
-        keep(case if case == "pcg" else f"kkt/{case}", x, solver, fact, status)
-
-    # the harness's psc: its sharded solver on its KKT, under jit
+    refs = {}
     m = jperf.SyntheticModel(**HARNESS)
     psc = pt.ShardedSchurComplementSolver(mesh, "blocks", block_size=128)
     fact = jax.jit(psc.numeric)(m.build_kkt())
@@ -525,25 +685,68 @@ def _jax_shared(kkts):
         n_t=m.n_theta, n_blocks=m.n_blocks,
     )
     fact = jax.jit(csc.numeric)(ckkt)
-    keep("csc", jax.jit(lambda f, r: csc.solve(f, r, kkt=ckkt))(fact, m.build_rhs()))
+    _keeper(refs)("csc", jax.jit(lambda f, r: csc.solve(f, r, kkt=ckkt))(fact, m.build_rhs()))
+    return refs
 
-    refs[8] = _jax_fused(mesh, "banded8", jnp.float32)
-    refs[11] = _jax_fused(mesh, "dense11", jnp.float32)
-    spec = bench_all.stochastic_qp(**QP_SMALL).spec
-    iface = pt.StochasticSchurComplementInteriorPointInterface(
-        spec, mesh=mesh, kkt_dtype=jnp.float32, ownership_map=OWNERSHIP[2]
-    )
-    opts = pt.IPOptions()
+
+def _port_serial_whole(name):
+    """The port's replicated 8-block interface (no mesh) through serial
+    solver ``name`` with one torch thread, as each rank runs: the first
+    KKT's fields (``kkt_fields``) and the fused solve's result and final
+    primals, keyed as the ranks' under ``serial_whole/{name}/``."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.examples import burgers
+
+    iface = serial_iface(ptt, burgers, name)
+    mu = torch.tensor(0.1, dtype=torch.float64)
+    kkt = iface.assemble_kkt(iface.eval_kkt_data(iface.init_state(), mu), 0.0, 0.0)
+    out = {f"kkt/{k}": v for k, v in kkt_fields(kkt).items()}
+    opts = ptt.IPOptions()
     opts.tol = TOL
-    opts.linalg.solver = pt.ShardedSchurComplementSolver(
-        mesh, "blocks", block_size=128, explicit_inverse=True, factor_dtype=jnp.float64,
-        apply_dtype=jnp.float32,
-    )
-    status, res = pt.ip_solve_fused(iface, opts)
-    refs["qp"] = (status.value, int(res.iterations), float(iface.evaluate_objective()))
-    refs["qp/block_primals"] = np.stack(
-        [np.asarray(iface.get_block_primals(i)) for i in range(QP_SMALL["n_scenarios"])]
-    )
+    opts.linalg.solver = serial_solver(ptt, name, iface.ns, torch.float32)
+    status, res = ptt.ip_solve_fused(iface, opts)
+    out["result"] = np.array([status.value, res.iterations, float(iface.evaluate_objective())])
+    out["x"], out["c"] = (res.state.primals[k].numpy() for k in ("blocks", "coupling"))
+    return {f"serial_whole/{name}/{k}": v for k, v in out.items()}
+
+
+def _jax_shared(kkts):
+    """The references held against every world size, computed once on a
+    2-device mesh (the answers do not depend on the device count beyond
+    rounding), in JAX_THREADS threads: the random systems
+    (``_jax_random``), the Burgers first KKTs through the sharded dense,
+    banded and PCG solvers, psc and csc, and the fused solves (8 and 11
+    blocks, the QP with ownership, the mesh= interface with each serial
+    solver); and the port's replicated runs with each serial solver
+    (``_port_serial_whole``)."""
+    import jax.numpy as jnp
+
+    mesh = _jax_mesh(2)
+    # the longest first
+    tasks = {
+        "qp": (_jax_qp_ownership, mesh),
+        8: (_jax_fused, mesh, "banded8", jnp.float32),
+        11: (_jax_fused, mesh, "dense11", jnp.float32),
+        **{f"serial/{name}": (_jax_serial_on_mesh, mesh, name) for name in SERIAL_SOLVERS},
+        "random": (_jax_random, mesh),
+        "harness": (_jax_harness, mesh),
+        **{f"solve/{case}": (_jax_kkt_solve, mesh, case, kkts) for case in (*CASES, "pcg")},
+    }
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        done = _in_threads(tasks, {f"serial_whole/{name}": (_port_serial_whole, name)
+                                   for name in SERIAL_SOLVERS})
+    finally:
+        torch.set_num_threads(threads)
+    refs = {}
+    for key, value in done.items():
+        if isinstance(value, dict):
+            refs.update(value)
+        elif key == "qp":
+            refs["qp"], refs["qp/block_primals"] = value
+        else:
+            refs[key] = value
     return refs
 
 
@@ -552,7 +755,9 @@ _SHARED = {}
 
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
-    """The JAX first KKTs, as JAX arrays and in ``inputs.npz``."""
+    """The JAX first KKTs, as JAX arrays and in ``inputs.npz``; then every
+    world size's ranks, started together so that they all run beside the
+    JAX references (killed at the module's end if still running)."""
     workdir = tmp_path_factory.mktemp("sharded")
     kkts = _jax_first_kkts()
     arrays = {}
@@ -564,7 +769,18 @@ def inputs(tmp_path_factory):
         arrays[f"{case}/rhs_blocks"] = np.asarray(rhs.blocks)
         arrays[f"{case}/rhs_coupling"] = np.asarray(rhs.coupling)
     np.savez(workdir / "inputs.npz", **arrays)
-    return workdir, kkts
+    deadline = time.monotonic() + LAUNCH_TIMEOUT
+    launches = {}
+    for P in WORLDS:
+        rundir = workdir / f"P{P}"
+        rundir.mkdir()
+        (rundir / "inputs.npz").symlink_to(workdir / "inputs.npz")
+        launches[P] = (rundir, _launch(P, rundir))
+    try:
+        yield kkts, launches, deadline
+    finally:
+        for _, procs in launches.values():
+            _kill(procs)
 
 
 @pytest.fixture(scope="module", params=WORLDS, ids=lambda P: f"P{P}")
@@ -572,17 +788,13 @@ def sharded(request, inputs):
     """(P, per-rank results, the JAX references (twice: the random systems'
     are among the shared ones since they are computed once))."""
     P = request.param
-    workdir, kkts = inputs
-    rundir = workdir / f"P{P}"
-    rundir.mkdir()
-    (rundir / "inputs.npz").symlink_to(workdir / "inputs.npz")
-    deadline = time.monotonic() + LAUNCH_TIMEOUT
-    procs = _launch(P, rundir)
+    kkts, launches, deadline = inputs
+    rundir, procs = launches[P]
     try:
         if not _SHARED:
             _SHARED.update(_jax_shared(kkts))
     finally:
-        _wait(procs, deadline)
+        _wait(procs, rundir, deadline)
     ranks = [dict(np.load(rundir / f"rank{r}.npz")) for r in range(P)]
     return P, ranks, _SHARED, _SHARED
 
@@ -826,27 +1038,97 @@ def test_mesh_interface_other_paths(sharded, case):
     _own_blocks_only(ranks, key, NLPS[8]["num_time_blocks"])
 
 
-def test_mesh_interface_needs_a_mesh_solver():
-    """A mesh= interface hands its rank's part of the KKT: a serial solver
-    refuses it, naming the solvers it needs (one gloo rank in process)."""
-    import parapint_tpu_torch as ptt
-    from parapint_tpu_torch.examples import burgers
-    from parapint_tpu_torch.parallel import distributed
+@pytest.mark.parametrize("name", SERIAL_SOLVERS)
+def test_mesh_interface_with_a_serial_solver(sharded, name):
+    """ROADMAP C11: a mesh= interface hands its rank's part of the KKT, and a
+    serial solver gathers it whole on every rank.  The gathered first KKT
+    equals the replicated interface's (dtypes, assembly and every entry);
+    the solve meets the JAX package's mesh= interface with the same serial
+    solver (status, iterations within 1, objective 1e-6) and repeats the
+    replicated interface's run (status, iterations, primals within
+    MESH_ATOL); each rank's model runs on its own blocks only, and the
+    ranks agree bitwise (``test_ranks_agree_bit_for_bit``)."""
+    P, ranks, _, shared = sharded
+    out = ranks[0]
+    key, whole = f"serial/{name}", f"serial_whole/{name}"
+    status, iters, obj = _result(out, key)
+    w_status, w_iters, w_obj = _result(shared, whole)
+    j_status, j_iters, j_obj = shared[key]
+    fields = [k[len(whole) + 5:] for k in shared if str(k).startswith(whole + "/kkt/")]
+    assert sorted(fields) == sorted(k[len(key) + 5:] for k in out if k.startswith(key + "/kkt/"))
+    diff = 0.0
+    for f in fields:
+        a, b = out[f"{key}/kkt/{f}"], shared[f"{whole}/kkt/{f}"]
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        if a.dtype.kind in "fi":
+            diff = max(diff, float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()))
+        else:
+            assert a == b, (f, a, b)
+    print(f"serial {name} on a mesh= interface, {P} ranks: iterations {iters} (replicated "
+          f"{w_iters}, JAX {j_iters}), objective {obj!r} (replicated {w_obj!r}, JAX {j_obj!r}), "
+          f"gathered first KKT vs replicated: largest difference {diff}")
+    assert diff == 0.0, f"gathered KKT differs from the replicated one by {diff}"
+    assert status == w_status == j_status == 0
+    assert iters == w_iters and abs(iters - j_iters) <= 1
+    assert abs(obj - j_obj) <= OBJ_REL_GAP * max(1.0, abs(j_obj))
+    _close(out[key + "/x"], shared[whole + "/x"], MESH_ATOL)
+    _close(out[key + "/c"], shared[whole + "/c"], MESH_ATOL)
+    _own_blocks_only(ranks, key, NLPS[8]["num_time_blocks"])
 
-    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0, device_type="cpu")
-    try:
-        mesh = distributed.global_mesh("blocks")
-        spec = burgers.build_spec(nfe_x=4, nfe_t=4, num_time_blocks=2, device="cpu")
-        for form, solver in (("dense", ptt.SchurComplementSolver(block_size=8)),
-                             ("banded", ptt.BandedSchurComplementSolver()),
-                             ("dense", ptt.PCGSchurComplementSolver(block_size=8))):
-            iface = ptt.DynamicSchurComplementInteriorPointInterface(spec, mesh=mesh, block_form=form)
-            opts = ptt.IPOptions()
-            opts.linalg.solver = solver
-            with pytest.raises(ValueError, match="ShardedSchurComplementSolver"):
-                ptt.ip_solve_fused(iface, opts)
-    finally:
-        distributed.shutdown()
+
+@pytest.mark.parametrize("form", ["dense", "banded"])
+def test_serial_and_sharded_step_on_a_mesh_kkt(sharded, form):
+    """One numeric and one solve of the same mesh= KKT (float64) through the
+    serial and the sharded solver: equal status and inertia, solutions
+    within 1e-11 (tests/test_banded.py::test_numeric_solve_parity_with_serial)."""
+    out = sharded[1][0]
+    s, h = f"step/{form}/serial", f"step/{form}/sharded"
+    assert int(out[s + "/status"]) == int(out[h + "/status"]) == 0
+    np.testing.assert_array_equal(out[s + "/inertia"], out[h + "/inertia"])
+    _close(out[s + "/xb"], out[h + "/xb"], 1e-11)
+    _close(out[s + "/xc"], out[h + "/xc"], 1e-11)
+
+
+def test_ownership_accessors_match_jax(sharded):
+    """The QP with ``OWNERSHIP[P]`` on a mesh: one seeded state (in storage
+    order) put into the port's interface on each rank and into the JAX
+    package's on P devices; every accessor bitwise equal, and the order
+    checks of tests/test_warmstart_ownership.py (per-scenario accessors in
+    ORIGINAL order, the raw state permuted)."""
+    import jax
+    import jax.numpy as jnp
+    import parapint_tpu as pt
+    from parapint_tpu.interfaces.base import IPState
+
+    import bench_all
+    import chip_smoke
+
+    from parapint_tpu_torch.interfaces.base import STATE_FIELDS
+
+    P, ranks = sharded[:2]
+    out = ranks[0]
+    ji = pt.StochasticSchurComplementInteriorPointInterface(
+        bench_all.stochastic_qp(**QP_SMALL).spec, mesh=_jax_mesh(P), kkt_dtype=jnp.float32,
+        ownership_map=OWNERSHIP[P])
+    tree = seeded_state(ji, seed=5)
+    ji._current_state = IPState(**{f: jax.tree_util.tree_map(jnp.asarray, tree[f])
+                                   for f in STATE_FIELDS})
+    ref = chip_smoke.results(ji)
+    assert {k[4:] for k in out if k.startswith("acc/get_") or k.startswith("acc/n_")} == set(ref)
+    for name, v in ref.items():
+        np.testing.assert_array_equal(out["acc/" + name], np.asarray(v), err_msg=name)
+    perm = np.argsort(OWNERSHIP[P], kind="stable")
+    n_sc = QP_SMALL["n_scenarios"]
+    prim = out["acc/get_primals/blocks"]
+    for ndx in range(n_sc):
+        np.testing.assert_array_equal(prim[ndx], out[f"acc/get_block_primals/{ndx}"])
+    np.testing.assert_array_equal(out["acc/get_duals_eq/link"],
+                                  out["acc/get_duals_nonanticipativity"])
+    np.testing.assert_array_equal(prim[perm], out["acc/raw_blocks"])
+    np.testing.assert_array_equal(out["acc/get_duals_ineq"][perm], out["acc/raw_ineq"])
+    np.testing.assert_array_equal(out["acc/get_duals_primals_lb/blocks"][perm], out["acc/raw_lb"])
+    assert out["acc/get_slacks"].shape == (n_sc, 0)
+    assert out["acc/get_duals_primals_lb/blocks"].shape == (n_sc, QP_SMALL["n"])
 
 
 @pytest.mark.cuda
