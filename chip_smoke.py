@@ -181,10 +181,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      JAX objective and iterations (within 1, and in the JAX
                      ensemble's set where phase 22 has one), the launches
                      per numeric and back solve of ``BENCH_NEW_ROWS``; then
-                     the tool on the same six rows (each a child of its own)
-                     as one child: exit 0, every row without an error and at
-                     its JAX iterations.  (The tool's other six rows are the
-                     configurations of phases 4, 9, 10, 12, 14 and 15.)
+                     the tool on those rows but row 10 (``BENCH_CHILD_ROWS``;
+                     row 10's 15-28 s solves stay in the in-process pass)
+                     (each a child of its own) as one child: exit 0, every
+                     row without an error and at its JAX iterations.  (The
+                     tool's other six rows are the configurations of phases
+                     4, 9, 10, 12, 14 and 15.)
 22. parity         — ROADMAP C5, C13/C14: bench_all rows 2, 5 and 9, the
                      flagship as two kinds and the bf16-W flagship
                      (``burgers_bf16_w``) through ``ip_solve`` (within 1 of
@@ -215,6 +217,28 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                      and (d)), bf16 K6 launched.  ``python3 chip_smoke.py --parity CONFIG``
                      runs only the build and this phase (also for row 10,
                      ``burgers_256blocks_dense_sc``).
+23. arguments      — the solver arguments the port restored from the JAX
+                     package's API, each at a user's value that changes
+                     what the card computes, at full width: (a) the banded
+                     flagship with ``tile_block_size=128`` (one K1 launch
+                     per Thomas tile, 14 per numeric where the default
+                     takes 22; K1's time at (64,128,128) against two
+                     launches at (64,64,64)), (b) the banded flagship with
+                     ``refine_steps=0``, (c) bench_all's row 11 with
+                     ``BlockTridiagSolver(ns=199, block_size=128)`` (its
+                     cyclic-reduction tiles as two 128-wide panels, 100 K1
+                     launches per numeric where the row takes 112), (d) PCG
+                     with ``cg_maxiter`` (ARGS_PCG_CG_MAXITER) on the dense
+                     flagship: its first KKT converged in the JAX package's
+                     CG count (within 1), block inertia equal to the
+                     explicit solver's, the solutions' gap printed beside
+                     the JAX package's own (ARGS_PCG_JAX_FIRST_GAP), then
+                     its fused solve.
+                     Each case optimal at the JAX package's objective (1e-6)
+                     and within 1 of its iterations at the same arguments
+                     (``ARGS_JAX``), with its wall, K1/K6 launches and the
+                     card's line.  ``python3 chip_smoke.py --arguments``
+                     runs only the build and this phase.
 
 Every measurement line carries the card's name and power limit; kernel
 times are medians of CUDA-event windows (``tools/kernel_lab.py::timed_loop``).
@@ -440,6 +464,83 @@ PCG_DEPTH_BLOCKS = 32
 # PCG against the explicit solver on the flagship's first KKT, both with
 # float32 factors: tests/test_torch_pcg_schur.py's float32 bound
 PCG_SOLUTION_RTOL = 1e-5
+# Phase 23: the JAX package's counts and objectives at the restored
+# arguments' user values, on the CPU (JAX_PLATFORMS=cpu, from the repository
+# root; each case in a process of its own, 75-208 s each):
+#   import jax.numpy as jnp, parapint_tpu as pt
+#   from parapint_tpu.examples import burgers
+#   def fused(iface, solver):
+#       o = pt.IPOptions(); o.tol = 1e-8; o.linalg.solver = solver
+#       status, res = pt.ip_solve_fused(iface, o)
+#       print(status.name, int(res.iterations), repr(float(iface.evaluate_objective())))
+#   def banded(nfe_x):
+#       return pt.DynamicSchurComplementInteriorPointInterface(
+#           burgers.build_spec(nfe_x=nfe_x, nfe_t=256, num_time_blocks=64),
+#           kkt_dtype=jnp.float32, block_form="banded")
+#   iface = banded(50)   # (a), and in another process (b)
+#   fused(iface, pt.BandedSchurComplementSolver(tile_size=128, tile_block_size=128,
+#       schur_complement_solver=pt.BlockTridiagSolver(ns=iface.ns)))
+#   # -> optimal 6 0.04755768812301196
+#   fused(iface, pt.BandedSchurComplementSolver(tile_size=128, refine_steps=0,
+#       schur_complement_solver=pt.BlockTridiagSolver(ns=iface.ns)))
+#   # -> optimal 6 0.04755768812300182
+#   iface = banded(200)  # (c): bench_all.py's row 11 with these coupling arguments
+#   fused(iface, pt.BandedSchurComplementSolver(factor_dtype=jnp.float32,
+#       schur_complement_solver=pt.BlockTridiagSolver(ns=199, block_size=128)))
+#   # -> optimal 7 0.04724632409564691
+# (d), the dense flagship through PCG: first the CG iterations of every
+# back solve of the JAX package's ``ip_solve`` under a budget no solve
+# reaches (3000), each counted by tests/test_torch_pcg_schur.py's
+# ``jax_cg_iterations`` (the while_loop body and stopping rule as a host
+# loop); then, in another process, the fused solve at ARGS_PCG_CG_MAXITER,
+# over twice the largest count:
+#   import sys; sys.path.insert(0, "tests")
+#   from test_torch_pcg_schur import jax_cg_iterations
+#   def dense():
+#       return pt.DynamicSchurComplementInteriorPointInterface(
+#           burgers.build_spec(nfe_x=50, nfe_t=256, num_time_blocks=64), kkt_dtype=jnp.float32)
+#   class Counting(pt.PCGSchurComplementSolver):
+#       counts = []
+#       def solve_with_status(self, fact, rhs):
+#           self.counts.append(jax_cg_iterations(self, fact, rhs))
+#           return super().solve_with_status(fact, rhs)
+#   o = pt.IPOptions(); o.tol = 1e-8
+#   o.linalg.solver = s = Counting(block_size=128, factor_dtype=jnp.float32, cg_maxiter=3000)
+#   print(pt.ip_solve(dense(), o).name, s.counts)
+#   # -> optimal [273, 283, 252, 211, 163, 82, 5]
+#   fused(dense(), pt.PCGSchurComplementSolver(block_size=128, factor_dtype=jnp.float32,
+#                                              cg_maxiter=600))
+#   # -> optimal 8 0.047557688123010144
+# and the JAX package's PCG against its explicit solver on the first KKT
+# (``_pcg_against_sc``'s pair), the gap relative to max|x|:
+#   iface = dense()
+#   data = iface.eval_kkt_data(iface.init_state(), pt.IPOptions().init_barrier_parameter)
+#   kkt, rhs = iface.assemble_kkt(data, 0.0, 0.0), iface.kkt_rhs(data)
+#   flat = lambda b: np.concatenate([np.asarray(b.blocks).ravel(), np.asarray(b.coupling)])
+#   js = pt.PCGSchurComplementSolver(block_size=128, factor_dtype=jnp.float32, cg_maxiter=600)
+#   jx, _ = js.solve_with_status(js.numeric(kkt), rhs)
+#   se = pt.SchurComplementSolver(block_size=128, explicit_inverse=True,
+#       factor_dtype=jnp.float32, schur_complement_solver=pt.BlockTridiagSolver())
+#   sx, _ = se.solve_with_status(se.numeric(kkt), rhs)
+#   print(np.abs(flat(jx) - flat(sx)).max() / np.abs(flat(sx)).max())
+#   # -> 7.994e-05
+# This gap is over PCG_SOLUTION_RTOL: at 64 blocks the JAX package's own
+# float32 CG misses phase 15's 32-block bar, so phase 23 holds the first
+# KKT to the JAX package's status, CG count (within 1) and block inertia
+# and prints the two gaps side by side.
+ARGS_PCG_JAX_FIRST_GAP = 7.994e-05
+# case -> (JAX iterations, JAX objective)
+ARGS_JAX = {
+    "tile_block_size": (6, 0.04755768812301196),
+    "refine_steps": (6, 0.04755768812300182),
+    "row11_cr128": (7, 0.04724632409564691),
+    "pcg_cg_maxiter": (8, 0.047557688123010144),
+}
+ARGS_PCG_JAX_CG = (273, 283, 252, 211, 163, 82, 5)  # per back solve of the JAX ip_solve
+ARGS_PCG_CG_MAXITER = 600
+ARGS_TILE_K1_PER_NUMERIC = 14  # 8 tiles x 1 panel of 128 + 6 CR levels
+# 44 tiles x 2 panels of 64 (84 -> 128) + 6 levels x 2 panels of 128 (199 -> 256)
+ARGS_ROW11_K1_PER_NUMERIC = 100
 CSC_REF = dict(n_blocks=3, n_q_per_block=5000, n_y_multiplier=120)  # 605,010 variables per block
 CSC_JAX_MAX_ERR = 0.1295882542007245
 CSC_JAX_THETA = (5.394658970325689, 0.45759233755419837, 7.001338872474145, 7.929935842062897,
@@ -638,6 +739,10 @@ PARITY_NOT_OPTIMAL = {"burgers_bf16_w": 0}
 # phase 22's configurations: row 10 (15-20 s per solve) only on request
 PARITY_CARD = tuple(name for name in PARITY if name != "burgers_256blocks_dense_sc")
 BENCH_RUNS = 2  # runs of the bench tool, for the spread of its value
+# the rows of phase 21's bench_all child: all of BENCH_NEW_ROWS but row 10,
+# whose solves (15-28 s each, four per row in the tool) phase 21 already
+# runs in process; cut to keep the script in its time
+BENCH_CHILD_ROWS = tuple(name for name in BENCH_NEW_ROWS if name != "burgers_256blocks_dense_sc")
 BENCH_TIMEOUT = 300  # seconds for one run of the bench tool
 BENCH_ROW_TIMEOUT = 240  # bench_all's --timeout per row
 BENCH_ALL_TIMEOUT = 900  # seconds for the whole bench_all child
@@ -1508,7 +1613,7 @@ def phase_banded():
     print(f"banded flagship: iterations {result.iterations} (JAX {JAX_ITERATIONS})")
     if not (c["K1"] > 0 and c["K1"] == BANDED_PANELS_PER_NUMERIC * c["numerics"]):
         raise AssertionError(f"banded: {c['K1']} K1 launches for {c['numerics']} numerics")
-    return c
+    return c, iface
 
 
 def _timer_lines(timer, depth=3):
@@ -1714,10 +1819,10 @@ def phase_heterogeneous():
     return c
 
 
-def _pcg_solver():
+def _pcg_solver(**kw):
     import parapint_tpu_torch as ptt
 
-    return ptt.PCGSchurComplementSolver(block_size=128, factor_dtype=torch.float32)
+    return ptt.PCGSchurComplementSolver(block_size=128, factor_dtype=torch.float32, **kw)
 
 
 def _pcg_kernels_ok(c, label):
@@ -1751,15 +1856,16 @@ def phase_pcg():
     return c, c_ip
 
 
-def _pcg_against_sc(iface, label):
-    """The first KKT of ``iface`` through PCG and through the W-form
-    ``SchurComplementSolver`` with cyclic reduction (adaptive refinement),
-    both with float32 factors: block inertia equal, the explicit solve
-    successful; returns (PCG status, CG iterations, max|dx|, max|x|)."""
+def _pcg_against_sc(iface, label, **pcg_kw):
+    """The first KKT of ``iface`` through PCG (``_pcg_solver(**pcg_kw)``)
+    and through the W-form ``SchurComplementSolver`` with cyclic reduction
+    (adaptive refinement), both with float32 factors: block inertia equal,
+    the explicit solve successful; returns (PCG status, CG iterations,
+    max|dx|, max|x|, the PCG solver's ``cg_maxiter``)."""
     import parapint_tpu_torch as ptt
 
     kkt, rhs = _first_kkt(iface)
-    pcg = _pcg_solver()
+    pcg = _pcg_solver(**pcg_kw)
     _reset_counts()
     t0 = time.perf_counter()
     fact = pcg.numeric(kkt)
@@ -1787,7 +1893,7 @@ def _pcg_against_sc(iface, label):
         f"solve {wall:.4f} s, launches {c}")
     if pcg_blk != sc_blk or int(sstatus) != 0:
         raise AssertionError(f"{label}: block inertia or the explicit solve's status differs")
-    return int(status), pcg.cg_iterations[0], dx, scale
+    return int(status), pcg.cg_iterations[0], dx, scale, pcg.cg_maxiter
 
 
 def phase_pcg_first_kkt(flagship_iface):
@@ -1796,27 +1902,124 @@ def phase_pcg_first_kkt(flagship_iface):
     and of the dense flagship itself, where the reference's CG budget runs
     out: its CG iterations grow with the block count (PCG_DEPTH_JAX_CG, the
     same in both packages), so it must either converge as at 32 blocks or
-    stop with status error after exactly CG_MAXITER iterations."""
+    stop with status error after exactly the solver's ``cg_maxiter``
+    iterations (200 by default; phase 23 gives it a budget that suffices)."""
     import parapint_tpu_torch as ptt
     from parapint_tpu_torch.examples import burgers
-    from parapint_tpu_torch.linalg.pcg_schur import CG_MAXITER
 
     n = PCG_DEPTH_BLOCKS
     iface = ptt.DynamicSchurComplementInteriorPointInterface(
         burgers.build_spec(nfe_x=50, nfe_t=4 * n, num_time_blocks=n), kkt_dtype=torch.float32
     )
     label = f"PCG first KKT, {n} blocks"
-    status, cg, dx, scale = _pcg_against_sc(iface, label)
+    status, cg, dx, scale, _ = _pcg_against_sc(iface, label)
     print(f"{label}: CG iterations {cg} (JAX {PCG_DEPTH_JAX_CG[n]} on the CPU) [{SMI}]")
     if status != 0 or not dx <= PCG_SOLUTION_RTOL * scale:
         raise AssertionError(f"{label}: status {status}, solutions differ by {dx}")
     label = "PCG first KKT, dense flagship"
-    status, cg, dx, scale = _pcg_against_sc(flagship_iface, label)
+    status, cg, dx, scale, cg_maxiter = _pcg_against_sc(flagship_iface, label)
     converged = status == 0 and dx <= PCG_SOLUTION_RTOL * scale
-    budget = status == int(ptt.LinearSolverStatus.error) and cg == CG_MAXITER
-    print(f"{label}: {'converged' if converged else f'CG budget of {CG_MAXITER} spent'} [{SMI}]")
+    budget = status == int(ptt.LinearSolverStatus.error) and cg == cg_maxiter
+    print(f"{label}: {'converged' if converged else f'CG budget of {cg_maxiter} spent'} [{SMI}]")
     if not (converged or budget):
         raise AssertionError(f"{label}: status {status} after {cg} CG iterations, max|dx| {dx}")
+
+
+def _args_case(iface, solver, key, label, per_numeric):
+    """One counted fused solve of a phase 23 case: optimal at the JAX
+    objective of ``ARGS_JAX[key]``, within 1 of its iterations, K1 launched
+    ``per_numeric`` times per numeric; its counts."""
+    iters, obj = ARGS_JAX[key]
+    _, c = _counted_solve(iface, solver, label, ref=obj)
+    _hold_count(label, c["iterations"], iters, key)
+    say(f"{label}: iterations {c['iterations']} (JAX {iters} at the same arguments), wall "
+        f"{c['counted_wall_s']:.3f} s, K1 {c['K1']} for {c['numerics']} numerics "
+        f"({c['K1'] / max(1, c['numerics']):g} per numeric), K6 {c['K6']}")
+    if not (c["K1"] > 0 and c["K1"] == per_numeric * c["numerics"]):
+        raise AssertionError(f"{label}: K1 {c['K1']} launches for {c['numerics']} numerics, "
+                             f"expected {per_numeric} per numeric")
+    return c
+
+
+def phase_arguments(banded_iface=None, dense_iface=None):
+    """Phase 23: the restored solver arguments at user values on the card
+    (module docstring); the interfaces of the banded and the dense flagship
+    are built here unless given.  Returns each case's counts."""
+    import parapint_tpu_torch as ptt
+    from parapint_tpu_torch.ops.ldl_panel import ldl_panels_slab_winv, random_panels
+    from parapint_tpu_torch.tools.bench import build_problem
+
+    t_phase = time.perf_counter()
+    out = {}
+    if banded_iface is None:
+        banded_iface = build_problem(FLAGSHIP["nfe_x"], FLAGSHIP["nfe_t"],
+                                     FLAGSHIP["num_time_blocks"], block_form="banded")
+    cr = lambda: ptt.BlockTridiagSolver(ns=banded_iface.ns)
+
+    # (a) one K1 launch per Thomas tile
+    solver = ptt.BandedSchurComplementSolver(tile_size=TILE_SIZE, tile_block_size=128,
+                                             schur_complement_solver=cr())
+    out["tile_block_size"] = c = _args_case(
+        banded_iface, solver, "tile_block_size", "args (a) banded flagship, tile_block_size=128",
+        ARGS_TILE_K1_PER_NUMERIC)
+    tiles = -(-banded_iface.nk // TILE_SIZE)
+    A128 = torch.as_tensor(random_panels(64, 128, seed=23), device="cuda")
+    A64 = torch.as_tensor(random_panels(64, 64, seed=23), device="cuda")
+    ms128 = timed_loop(lambda: ldl_panels_slab_winv(A128), 20)
+    ms64 = timed_loop(lambda: ldl_panels_slab_winv(A64), 20)
+    c["K1_ms_128"], c["K1_ms_64"] = ms128, ms64
+    say(f"args (a): {tiles} Thomas tiles per numeric, one K1 launch each (the default's two); "
+        f"K1 at (64, 128, 128) {ms128:.4f} ms per launch against 2 x {ms64:.4f} = "
+        f"{2 * ms64:.4f} ms for two launches at (64, 64, 64), so {tiles * ms128:.4f} against "
+        f"{tiles * 2 * ms64:.4f} ms of Thomas-sweep K1 per numeric")
+
+    # (b) the fixed-pass branch
+    solver = ptt.BandedSchurComplementSolver(tile_size=TILE_SIZE, refine_steps=0,
+                                             schur_complement_solver=cr())
+    out["refine_steps"] = _args_case(banded_iface, solver, "refine_steps",
+                                     "args (b) banded flagship, refine_steps=0",
+                                     BANDED_PANELS_PER_NUMERIC)
+    del banded_iface
+    torch.cuda.empty_cache()
+
+    # (c) bench_all's row 11 with 128-wide cyclic-reduction panels
+    t0 = time.perf_counter()
+    iface = build_problem(200, 256, 64, block_form="banded")
+    print(f"args (c) interface nfe_x=200: nk {iface.nk} ns {iface.ns} p {iface.banded_plan.p} "
+          f"setup {time.perf_counter() - t0:.2f} s")
+    solver = ptt.BandedSchurComplementSolver(
+        factor_dtype=torch.float32,
+        schur_complement_solver=ptt.BlockTridiagSolver(ns=199, block_size=128))
+    out["row11_cr128"] = _args_case(iface, solver, "row11_cr128",
+                                    "args (c) row 11, BlockTridiagSolver(ns=199, block_size=128)",
+                                    ARGS_ROW11_K1_PER_NUMERIC)
+    del iface
+    torch.cuda.empty_cache()
+
+    # (d) PCG with a CG budget over twice the JAX package's largest count
+    if dense_iface is None:
+        dense_iface = _dense_iface()
+    M = ARGS_PCG_CG_MAXITER
+    label = f"args (d) PCG first KKT, dense flagship, cg_maxiter={M}"
+    status, cg, dx, scale, cg_maxiter = _pcg_against_sc(dense_iface, label, cg_maxiter=M)
+    say(f"{label}: converged in {cg} CG iterations (JAX {ARGS_PCG_JAX_CG[0]}), budget "
+        f"{cg_maxiter}; gap to the explicit solver {dx / scale:.3e} x max|x| (the JAX package's "
+        f"own on this KKT {ARGS_PCG_JAX_FIRST_GAP:.3e}; PCG_SOLUTION_RTOL {PCG_SOLUTION_RTOL:g} "
+        f"is phase 15's 32-block bar, which both miss here)")
+    if cg_maxiter != M or status != 0 or abs(cg - ARGS_PCG_JAX_CG[0]) > 1:
+        raise AssertionError(f"{label}: status {status} after {cg} CG iterations, max|dx| {dx}")
+    out["pcg_first_kkt"] = dict(cg=cg, max_dx=dx, max_x=scale, jax_gap=ARGS_PCG_JAX_FIRST_GAP)
+    solver = _pcg_solver(cg_maxiter=M)
+    out["pcg_cg_maxiter"] = c = _args_case(
+        dense_iface, solver, "pcg_cg_maxiter", f"args (d) dense flagship, PCG cg_maxiter={M}",
+        PCG_K1_PER_NUMERIC)
+    if not c["K6"] == 2 * c["solves"] + sum(c["cg"]):
+        raise AssertionError(f"args (d): K6 {c['K6']} launches for {c['solves']} back solves")
+    say(f"args (d): CG iterations per back solve {c['cg']} (largest {max(c['cg'])} of {M}; "
+        f"the JAX ip_solve's {list(ARGS_PCG_JAX_CG)})")
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 23 (arguments): every case held in {out['seconds']:.1f} s")
+    return out
 
 
 def _launches(fn):
@@ -2263,7 +2466,7 @@ def phase_host_bk(single):
     fact = solver.numeric(kkt.diag)
     host_s = time.perf_counter() - t0
     host = tuple(int(v) for v in solver.inertia(fact))
-    *_, inertia, status = _factor_blocks_winv(kkt.diag, kkt.mask, 128, torch.float32)
+    *_, inertia, status = _factor_blocks_winv(kkt.diag, kkt.mask, 128, 0.0, torch.float32)
     card = tuple(int(v) for v in inertia.cpu())
     say(f"HostBKSolver batched factor of {tuple(kkt.diag.shape)} first-KKT blocks ({kkt.diag.dtype} "
         f"read as float64): {host_s:.3f} s on the host (OpenMP, {os.cpu_count()} cores), status "
@@ -2383,9 +2586,9 @@ def phase_bench_rows():
     """bench_all's six rows that no phase above runs, in this process
     through the tool's row factory (every count zeroed before the counted
     solve): optimal at the JAX objective and iterations, the launches per
-    numeric and per back solve of BENCH_NEW_ROWS; then the whole tool (all
-    twelve rows, each in its own child) as one child: every row without an
-    error, at its JAX iterations, and the condensed row at the JAX max_err."""
+    numeric and per back solve of BENCH_NEW_ROWS; then the tool on
+    BENCH_CHILD_ROWS (each row in its own child) as one child: every row
+    without an error and at its JAX iterations."""
     from parapint_tpu_torch.tools import bench_all
 
     rows = {}
@@ -2410,11 +2613,11 @@ def phase_bench_rows():
 
     t0 = time.perf_counter()
     rc, out, err = _run_tool(["parapint_tpu_torch.tools.bench_all", "--timeout",
-                              str(BENCH_ROW_TIMEOUT), *BENCH_NEW_ROWS], BENCH_ALL_TIMEOUT)
+                              str(BENCH_ROW_TIMEOUT), *BENCH_CHILD_ROWS], BENCH_ALL_TIMEOUT)
     print("\n".join(out))
     say(f"bench_all: exit {rc} in {time.perf_counter() - t0:.1f} s")
     records = {r["config"]: r for r in map(json.loads, out[2:])}
-    if rc != 0 or sorted(records) != sorted(BENCH_NEW_ROWS):
+    if rc != 0 or sorted(records) != sorted(BENCH_CHILD_ROWS):
         raise AssertionError(f"bench_all: exit {rc}, rows {list(records)}\n{err[-3000:]}")
     for name, r in records.items():
         if "error" in r or r["device"] != SMI:
@@ -2586,6 +2789,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="smoke run of the port on one CUDA card")
     ap.add_argument("--parity", nargs="+", metavar="CONFIG", choices=sorted(PARITY),
                     help="run only the build and phase 22 for these configurations")
+    ap.add_argument("--arguments", action="store_true",
+                    help="run only the build and phase 23")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2610,9 +2815,13 @@ def main(argv=None):
     phase_device()
     phase_build()
     lap("build")
-    if args.parity:
-        print(json.dumps({"parity": phase_parity(args.parity)}))
-        lap("parity")
+    if args.parity or args.arguments:
+        if args.parity:
+            print(json.dumps({"parity": phase_parity(args.parity)}))
+            lap("parity")
+        if args.arguments:
+            print(json.dumps({"arguments": phase_arguments()}))
+            lap("arguments")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return
@@ -2636,14 +2845,18 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_farmer()
     single = phase_single()
-    banded = phase_banded()
+    banded, banded_iface = phase_banded()
     lap("farmer, single NLP, banded")
     phase_heterogeneous()
     lap("heterogeneous")
     torch.cuda.empty_cache()
     phase_pcg()
-    phase_pcg_first_kkt(_dense_iface())
+    dense_iface = _dense_iface()
+    phase_pcg_first_kkt(dense_iface)
     lap("PCG")
+    arguments = phase_arguments(banded_iface, dense_iface)
+    lap("arguments (phase 23)")
+    del banded_iface, dense_iface
     torch.cuda.empty_cache()
     phase_condensed()
     lap("condensed")
@@ -2708,6 +2921,8 @@ def main(argv=None):
                       "bench_all": bench_all_records}))
     # phase 22: the port's counts against the JAX package's ensembles
     print(json.dumps({"parity": parity}))
+    # phase 23: the restored arguments' cases
+    print(json.dumps({"arguments": arguments}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

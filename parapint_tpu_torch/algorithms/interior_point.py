@@ -63,7 +63,8 @@ def check_precision_compat(interface, solver) -> None:
         )
 
 
-def _current_state(interface):
+def interface_state_or(interface):
+    """The interface's current iterate, or its initial one before a solve."""
     state = getattr(interface, "_current_state", None)
     return interface.init_state() if state is None else state
 
@@ -72,7 +73,7 @@ def check_convergence(interface, barrier, error_scaling: float = 100.0):
     """Standalone convergence check (reference :174-317) at the interface's
     current iterate: (primal_inf, dual_inf, complementarity_inf) as floats,
     evaluated at ``barrier``."""
-    info = interface.convergence_info(_current_state(interface), barrier, error_scaling)
+    info = interface.convergence_info(interface_state_or(interface), barrier, error_scaling)
     return float(info.primal_inf), float(info.dual_inf), float(info.compl_inf_mu)
 
 
@@ -107,9 +108,12 @@ def line_search(
     return 1.0 if ls.step_anyway else None
 
 
-def try_factorization_and_reallocation(kkt, linear_solver: LinearSolver, reallocation_factor, max_iter):
+def try_factorization_and_reallocation(
+    kkt, linear_solver: LinearSolver, reallocation_factor, max_iter, timer=None
+):
     """Reference :634-652: retry a numeric factorization that reports
-    ``not_enough_memory`` after growing the solver's allocation."""
+    ``not_enough_memory`` after growing the solver's allocation.  ``timer``
+    is accepted as in the JAX package, which times no phase here either."""
     if max_iter < 1:
         raise ValueError("max_iter must be at least 1")
     for count in range(max_iter):
@@ -122,9 +126,18 @@ def try_factorization_and_reallocation(kkt, linear_solver: LinearSolver, realloc
     return fact, status, count
 
 
-def numeric_factorization(interface, data, options: IPOptions, inertia_coef: float) -> Tuple[object, float]:
+def numeric_factorization(
+    interface,
+    data,
+    options: IPOptions,
+    inertia_coef: float,
+    timer: Optional[HierarchicalTimer] = None,
+) -> Tuple[object, float]:
     """Factorize the KKT system, applying inertia correction as needed.
-    Returns (factorization, final_inertia_coef); reference :337-402."""
+    Returns (factorization, final_inertia_coef); reference :337-402.
+    ``timer`` goes to :func:`try_factorization_and_reallocation`, as in the
+    JAX package (``ip_solve`` passes its own and times the whole call as
+    "numeric")."""
     solver: LinearSolver = options.linalg.solver
     logger.debug(f"{'reg_iter':<10}{'reg_coef':<10}{'pos_eig':<10}{'neg_eig':<10}{'zero_eig':<10}{'status':<10}")
 
@@ -134,6 +147,7 @@ def numeric_factorization(interface, data, options: IPOptions, inertia_coef: flo
             solver,
             options.linalg.reallocation_factor,
             options.linalg.max_num_reallocations,
+            timer=timer,
         )[:2]
 
     fact, status = factor(0.0, 0.0)
@@ -295,7 +309,8 @@ def ip_solve(
                 )
         timer.start("numeric")
         fact, used_inertia_coef = numeric_factorization(
-            interface=interface, data=data, options=options, inertia_coef=inertia_coef
+            interface=interface, data=data, options=options, inertia_coef=inertia_coef,
+            timer=timer,
         )
         inertia_coef = max(
             options.inertia_correction.init_coef,

@@ -118,7 +118,7 @@ class MumpsInterface(_DenseLDLSolver):
         if self.log_error:
             self.log_header()
 
-    def set_icntl(self, key, value):
+    def set_icntl(self, key, value, _init=False):
         if key == 13 and value <= 0:
             raise ValueError("ICNTL(13) must be positive for the MumpsInterface.")
         if key == 24 and value != 0:

@@ -114,6 +114,7 @@ def main(
     nfe_t: int = 200,
     num_time_blocks: int = 4,
     linear_solver=None,
+    mesh=None,
     options=None,
     block_form: str = "dense",
     device="cuda",
@@ -121,11 +122,15 @@ def main(
     """Solve through ``ip_solve``.  ``block_form="banded"`` routes the
     per-block KKTs through the banded factorization (O(nk * bandwidth)
     memory per block), which the reference's ``--nfe_x`` beyond ~100 needs
-    (reference burgers.py:14-20)."""
+    (reference burgers.py:14-20).  ``mesh``: the interface's (each rank
+    evaluates its own blocks); the default solver stays the serial one,
+    which gathers the rank-local KKT whole on every rank."""
     import parapint_tpu_torch as ptt
 
     spec = build_spec(nfe_x=nfe_x, nfe_t=nfe_t, num_time_blocks=num_time_blocks, device=device)
-    interface = ptt.DynamicSchurComplementInteriorPointInterface(spec, block_form=block_form)
+    interface = ptt.DynamicSchurComplementInteriorPointInterface(
+        spec, mesh=mesh, block_form=block_form
+    )
     if options is None:
         options = ptt.IPOptions()
     if linear_solver is not None:

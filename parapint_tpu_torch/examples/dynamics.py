@@ -76,18 +76,20 @@ def main(
     num_finite_elements: int = 90,
     num_time_blocks: int = 3,
     constant_control_duration: int = 10,
+    mesh=None,
     options=None,
     device="cuda",
 ):
     """Solve through ``ip_solve``; returns (interface, x(t), p(t)) with the
-    trajectories stitched across blocks, as numpy."""
+    trajectories stitched across blocks, as numpy.  ``mesh``: the
+    interface's, as for ``burgers.main``."""
     spec = build_spec(
         num_finite_elements=num_finite_elements,
         num_time_blocks=num_time_blocks,
         constant_control_duration=constant_control_duration,
         device=device,
     )
-    interface = ptt.DynamicSchurComplementInteriorPointInterface(spec)
+    interface = ptt.DynamicSchurComplementInteriorPointInterface(spec, mesh=mesh)
     if options is None:
         options = ptt.IPOptions()
     options.linalg.solver = linear_solver or ptt.SchurComplementSolver(block_size=32)

@@ -38,31 +38,37 @@ YIELDS = np.array(
 PROBS = np.array([0.3333, 0.3334, 0.3333])
 
 
+def _f64(a, like):
+    return torch.as_tensor(a, dtype=torch.float64, device=like.device)
+
+
+def scenario_objective(x, p):
+    """One scenario's probability-weighted cost."""
+    acre, sub, sup, purch = x[:3], x[3:6], x[6:9], x[9:12]
+    expr = (
+        (_f64(PURCHASE_PRICE, x) * purch).sum()
+        - (_f64(SUB_PRICE, x) * sub).sum()
+        - (_f64(SUPER_PRICE, x) * sup).sum()
+        + (_f64(PLANT_COST, x) * acre).sum()
+    )
+    return p["prob"] * expr
+
+
+def scenario_ineq(x, p):
+    """One scenario's inequality rows: total acreage, cattle feed, the quota
+    limit and the quota itself."""
+    acre, sub, sup, purch = x[:3], x[3:6], x[6:9], x[9:12]
+    total = acre.sum()[None]
+    feed = p["yield"] * acre + purch - sub - sup  # >= CattleFeedRequirement
+    limit = sub + sup - p["yield"] * acre  # <= 0
+    quota = sub  # 0 <= sub <= PriceQuota
+    return torch.cat([total, feed, limit, quota])
+
+
 def build_spec(yields=YIELDS, probs=PROBS, device="cuda") -> StochasticModelSpec:
     """The farmer family on ``device`` (the card by default; raises without
     CUDA — pass ``device="cpu"`` for a CPU run)."""
     device = require_device(device)
-    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
-    purchase, sub_price, super_price, plant = map(f64, (PURCHASE_PRICE, SUB_PRICE, SUPER_PRICE, PLANT_COST))
-
-    def scenario_objective(x, p):
-        acre, sub, sup, purch = x[:3], x[3:6], x[6:9], x[9:12]
-        expr = (
-            (purchase * purch).sum()
-            - (sub_price * sub).sum()
-            - (super_price * sup).sum()
-            + (plant * acre).sum()
-        )
-        return p["prob"] * expr
-
-    def scenario_ineq(x, p):
-        acre, sub, sup, purch = x[:3], x[3:6], x[6:9], x[9:12]
-        total = acre.sum()[None]
-        feed = p["yield"] * acre + purch - sub - sup  # >= CattleFeedRequirement
-        limit = sub + sup - p["yield"] * acre  # <= 0
-        quota = sub  # 0 <= sub <= PriceQuota
-        return torch.cat([total, feed, limit, quota])
-
     N = yields.shape[0]
     n = 12  # [acreage(3), sub_quota_sold(3), super_quota_sold(3), purchased(3)]
     xl = np.zeros((N, n))
@@ -134,9 +140,12 @@ def qp_spec(n_scenarios=32, n=768, me=192, n_first=64, seed=7, device="cuda") ->
     )
 
 
-def main(linear_solver=None, device="cuda"):
-    """The farmer through ``ip_solve`` with ``SchurComplementSolver(block_size=16)``."""
-    interface = ptt.StochasticSchurComplementInteriorPointInterface(build_spec(device=device))
+def main(linear_solver=None, mesh=None, device="cuda"):
+    """The farmer through ``ip_solve`` with ``SchurComplementSolver(block_size=16)``;
+    ``mesh``: the interface's, as for ``burgers.main``."""
+    interface = ptt.StochasticSchurComplementInteriorPointInterface(
+        build_spec(device=device), mesh=mesh
+    )
     options = ptt.IPOptions()
     options.linalg.solver = linear_solver or ptt.SchurComplementSolver(block_size=16)
     status = ptt.ip_solve(interface, options)

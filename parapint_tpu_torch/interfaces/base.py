@@ -59,6 +59,10 @@ class BaseInteriorPointInterface(abc.ABC):
     def get_bounds_relaxation_factor(self) -> float: ...
 
     @abc.abstractmethod
+    def convergence_info(self, state, barrier, error_scaling=100.0):
+        """Scaled infeasibilities + objective (a :class:`ConvergenceInfo`)."""
+
+    @abc.abstractmethod
     def eval_kkt_data(self, state, barrier):
         """Evaluate AD quantities + rhs once per iteration."""
 
@@ -252,16 +256,20 @@ def _min_or_inf(a: torch.Tensor) -> torch.Tensor:
 class ConvergenceInfo:
     """Scaled infeasibilities; compl evaluated at both barrier=0 and
     barrier=mu, plus the raw complementarity-product statistics (mean, min,
-    count over the finite bounds) that the adaptive barrier rule reads."""
+    count over the finite bounds) that the adaptive barrier rule reads.
+    Without statistics they read as no finite bound (count 0), on which
+    the rule falls back to the monotone one."""
 
     objective: torch.Tensor
     primal_inf: torch.Tensor
     dual_inf: torch.Tensor
     compl_inf_0: torch.Tensor
     compl_inf_mu: torch.Tensor
-    compl_avg: torch.Tensor
-    compl_min: torch.Tensor
-    compl_count: torch.Tensor
+    compl_avg: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.tensor(0.0, dtype=torch.float64))
+    compl_min: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.tensor(float("inf"), dtype=torch.float64))
+    compl_count: torch.Tensor = dataclasses.field(default_factory=lambda: torch.tensor(0))
 
 
 def _compl_residuals(x, lb, ub, z_lb, z_ub, barrier):

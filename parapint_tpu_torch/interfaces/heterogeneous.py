@@ -189,6 +189,9 @@ class MultiKindNLPFunctions:
     def f(self, xs, params, xm):
         return self._segmented((), "f", xs, xm)
 
+    def total_objective(self, xs, params, xm):
+        return self.f(xs, params, xm).sum()
+
     def grad_f(self, xs, params, xm):
         return self._segmented((self.n_x,), "grad_f", xs, xm)
 

@@ -27,8 +27,6 @@ from parapint_tpu_torch.linalg.base import LinearSolver
 from parapint_tpu_torch.linalg.dense import DenseLDLSolver
 from parapint_tpu_torch.linalg.results import LinearSolverResults, LinearSolverStatus
 from parapint_tpu_torch.linalg.schur import (
-    REFINE_MAX_PASSES,
-    REFINE_TRIGGER,
     BlockRhs,
     _assemble_sc,
     _border_apply_chain,
@@ -48,10 +46,6 @@ from parapint_tpu_torch.linalg.schur import (
 from parapint_tpu_torch.linalg.tridiag import BlockTridiagSolver, _winv_to_inverse
 from parapint_tpu_torch.ops.banded import pad_sym_band, sym_band_to_tridiag_tiles
 from parapint_tpu_torch.parallel.mesh import BlockAxis, all_reduce_max, all_reduce_sum
-
-# panel width of the tile factorizations (a 128-wide tile is two panels)
-TILE_BLOCK_SIZE = 64
-
 
 @dataclasses.dataclass(frozen=True)
 class BandedLocalBlockKKT:
@@ -97,17 +91,24 @@ def thomas_factor_batched(
     diag_tiles: torch.Tensor,
     upper_tiles: torch.Tensor,
     mask: torch.Tensor,
+    zero_tol: float = 0.0,
+    factor_dtype=None,
+    tile_block_size: int = 64,
 ) -> ThomasFactor:
     """Factor N block-tridiagonal matrices (diag (N, m, ts, ts), upper
     (N, m-1, ts, ts)) by a sequential tile sweep: each step factors the
-    Schur-complemented diagonal tile and carries U^T D'^{-1} U forward."""
+    Schur-complemented diagonal tile and carries U^T D'^{-1} U forward.
+    Each tile factors in ``factor_dtype`` (None: the tiles' dtype) as
+    panels of ``tile_block_size`` columns (a 128-wide tile is two 64-wide
+    panels at the default, one at 128); ``zero_tol`` as for
+    ``SchurComplementSolver``."""
     N, m, ts, _ = diag_tiles.shape
     dt = diag_tiles.dtype
     C = torch.zeros((N, ts, ts), dtype=dt, device=diag_tiles.device)
     tinvs, inertia, status = [], 0, None
     for i in range(m):
         W, d, s, inert, stat = _factor_blocks_winv(
-            diag_tiles[:, i] - C, mask, TILE_BLOCK_SIZE
+            diag_tiles[:, i] - C, mask, tile_block_size, zero_tol, factor_dtype
         )
         tinv = _winv_to_inverse(W, d, s, ts).to(dt)
         tinvs.append(tinv)
@@ -169,14 +170,14 @@ class BandedSchurFactor:
     nk: int
     nc: int
     ts: int
-    assembly: str
-    diag_t: torch.Tensor  # (N, m, ts, ts) tile store for the refinement matvec
-    upper_t: torch.Tensor  # (N, m-1, ts, ts)
-    v_border: torch.Tensor  # (N, nk, L) V = K^{-1} A^T
-    norm2: torch.Tensor  # ||K||_F^2 of the full block-bordered system
+    assembly: str = "scatter"
+    diag_t: Optional[torch.Tensor] = None  # (N, m, ts, ts) tile store for the refinement matvec
+    upper_t: Optional[torch.Tensor] = None  # (N, m-1, ts, ts)
+    v_border: Optional[torch.Tensor] = None  # (N, nk, L) V = K^{-1} A^T
+    norm2: Optional[torch.Tensor] = None  # ||K||_F^2 of the full block-bordered system
     # first global block of these blocks (a sharded solver's rank holds its
-    # own blocks only)
-    group_offset: int = 0
+    # own blocks only; None = 0)
+    group_offset: Optional[int] = None
     # the KKT's global_blocks (a rank-local KKT: the rhs is rank-local too)
     global_blocks: Optional[int] = None
     # a serial solver's factor of a gathered rank-local KKT: the axis over
@@ -219,8 +220,14 @@ class BandedSchurComplementSolver(LinearSolver):
     Consumes a :class:`BandedLocalBlockKKT`; rhs and solutions use the
     ORIGINAL variable ordering (:class:`BlockRhs`), the permutation is
     applied internally by index gathers.  The coupling solver defaults to
-    ``DenseLDLSolver(refine_steps=0)``.  ``n_numeric`` counts numeric
-    factorizations.  A rank-local KKT (an interface built with ``mesh=``)
+    ``DenseLDLSolver(zero_tol=zero_tol, refine_steps=0)``.  ``tile_size``:
+    the Thomas tiles' width (None: max(8, p)); ``zero_tol``,
+    ``factor_dtype`` and ``tile_block_size``: as for
+    :func:`thomas_factor_batched`; ``refine_steps``: None = adaptive
+    refinement (``refine_trigger`` and ``refine_max_passes`` as for
+    ``SchurComplementSolver``), an int = that many fixed passes;
+    ``device``: the device the solver is built for (its KKTs must lie
+    there; None: any).  ``n_numeric`` counts numeric factorizations.  A rank-local KKT (an interface built with ``mesh=``)
     and the rhs of its solves are gathered whole on every rank
     (``schur.gather_kkt``), as for ``SchurComplementSolver``.
     """
@@ -233,14 +240,27 @@ class BandedSchurComplementSolver(LinearSolver):
         self,
         schur_complement_solver: Optional[LinearSolver] = None,
         tile_size: Optional[int] = None,
+        zero_tol: float = 0.0,
+        factor_dtype=None,
+        refine_steps: Optional[int] = None,
+        refine_trigger: float = 1e-5,
+        refine_max_passes: int = 8,
+        tile_block_size: int = 64,
         device=None,
     ):
         self.sc_solver = (
             schur_complement_solver
             if schur_complement_solver is not None
-            else DenseLDLSolver(refine_steps=0)
+            else DenseLDLSolver(zero_tol=zero_tol, refine_steps=0)
         )
         self.tile_size = tile_size
+        self.zero_tol = zero_tol
+        self.factor_dtype = factor_dtype
+        self.adaptive_refine = refine_steps is None
+        self.refine_steps = 1 if refine_steps is None else refine_steps
+        self.refine_trigger = refine_trigger
+        self.refine_max_passes = refine_max_passes
+        self.tile_block_size = tile_block_size
         self.device = None if device is None else torch.device(device)
         self.n_numeric = 0
 
@@ -292,7 +312,9 @@ class BandedSchurComplementSolver(LinearSolver):
         N, L = A.shape[:2]
         with record_function("banded_sc.factor_blocks"):
             diag_t, upper_t, ts, nk_pad = banded_tiles(kkt.sym_bands[rows], self.tile_size)
-            thomas = thomas_factor_batched(diag_t, upper_t, mask)
+            thomas = thomas_factor_batched(
+                diag_t, upper_t, mask, self.zero_tol, self.factor_dtype, self.tile_block_size
+            )
         with record_function("banded_sc.form_sc"):
             # V = K^{-1} A^T over the L border columns (multi-RHS sweep)
             At = A.transpose(1, 2).to(diag_t.dtype)  # (N, nk, L)
@@ -443,7 +465,8 @@ class BandedSchurComplementSolver(LinearSolver):
 
     def _refine(self, fact: BandedSchurFactor, rp: BlockRhs):
         """(solution, refined_ok) in PERMUTED block coordinates: one solve,
-        then adaptive refinement."""
+        then adaptive refinement (a host loop, one flag read per pass) or
+        ``refine_steps`` fixed passes."""
 
         def up(b: BlockRhs) -> BlockRhs:
             return BlockRhs(
@@ -458,13 +481,16 @@ class BandedSchurComplementSolver(LinearSolver):
             return BlockRhs(blocks=x.blocks + dx.blocks, coupling=x.coupling + dx.coupling)
 
         x = up(self._solve_once(fact, rp))
-        # adaptive refinement, a host loop: one flag read per pass
-        need = self._refine_probe(fact, rp, x, REFINE_TRIGGER)
+        if not self.adaptive_refine:
+            for _ in range(self.refine_steps):
+                x = refine_pass(x)
+            return x, torch.ones((), dtype=torch.bool, device=x.blocks.device)
+        need = self._refine_probe(fact, rp, x, self.refine_trigger)
         passes = 0
-        while passes < REFINE_MAX_PASSES and bool(need.item()):
+        while passes < self.refine_max_passes and bool(need.item()):
             x = refine_pass(x)
             passes += 1
-            need = self._refine_probe(fact, rp, x, REFINE_TRIGGER)
+            need = self._refine_probe(fact, rp, x, self.refine_trigger)
         return x, ~need
 
     def solve(self, fact: BandedSchurFactor, rhs: BlockRhs) -> BlockRhs:

@@ -6,12 +6,13 @@ object holds only configuration and can be reused across systems of the
 same structure.
 """
 
+import logging
 from abc import ABC, abstractmethod
 from typing import Any, Tuple
 
 import torch
 
-from parapint_tpu_torch.linalg.results import LinearSolverResults
+from parapint_tpu_torch.linalg.results import LinearSolverResults, LinearSolverStatus
 
 
 class LinearSolver(ABC):
@@ -47,3 +48,15 @@ class LinearSolver(ABC):
         numeric factorization reports ``not_enough_memory``.  The port's
         solvers allocate per call and never report it, so this does
         nothing."""
+
+    def results(self, fact: Any) -> LinearSolverResults:
+        """The factorization's status and inertia read to the host as a
+        :class:`LinearSolverResults`."""
+        status = LinearSolverStatus(int(self.status(fact)))
+        pos, neg, zero = self.inertia(fact)
+        return LinearSolverResults(status=status, inertia=(int(pos), int(neg), int(zero)))
+
+    def getLogger(self) -> logging.Logger:
+        """The solver's logger, ``algorithms.<class name>`` (the reference's
+        base_linear_solver_interface.py:16-23)."""
+        return logging.getLogger("algorithms." + self.__class__.__name__)

@@ -122,11 +122,24 @@ class CondensedLSQSolver(LinearSolver):
     splits the blocks over the ranks of ``axis_name``: each rank solves its
     own contiguous blocks (the count padded with zero right-hand sides) and
     one all-reduce of n_t numbers sums the coupling rhs.  The factorization
-    does not depend on the block count and runs on every rank."""
+    does not depend on the block count and runs on every rank.
+    ``zero_tol`` goes to every factorization (the cyclic reduction of G and
+    the two dense ones), ``factor_dtype`` to G's (None: the bands' dtype)."""
 
-    def __init__(self, tile_size: int = 128, mesh=None, axis_name: str = "blocks"):
+    def __init__(
+        self,
+        tile_size: int = 128,
+        zero_tol: float = 0.0,
+        factor_dtype=None,
+        mesh=None,
+        axis_name: str = "blocks",
+    ):
         self.tile_size = tile_size
-        self._dense = DenseLDLSolver(block_size=DENSE_BLOCK_SIZE)
+        self.zero_tol = zero_tol
+        self.factor_dtype = factor_dtype
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self._dense = DenseLDLSolver(block_size=DENSE_BLOCK_SIZE, zero_tol=zero_tol)
         self.axis = None if mesh is None else BlockAxis.of(mesh, axis_name)
         self.n_numeric = 0
         self.n_solves = 0
@@ -148,6 +161,8 @@ class CondensedLSQSolver(LinearSolver):
         g_fact = cr_factor(
             BlockTridiag(diag=diag_t, upper=upper_t),
             block_size=min(DENSE_BLOCK_SIZE, self.tile_size),
+            zero_tol=self.zero_tol,
+            factor_dtype=self.factor_dtype,
         )
         # G^{-1} P^T: the n_t unit columns in one multi-column solve
         pt_cols = torch.zeros((nq + n_pad, nt), dtype=dt, device=dev)

@@ -27,10 +27,6 @@ from parapint_tpu_torch.ops.ldl import (
 )
 
 
-# DenseLUSolver: |U_ii| <= LU_ZERO_TOL * max(1, max|U_ii|) reads as singular
-LU_ZERO_TOL = 1e-14
-
-
 def _status(bad: torch.Tensor) -> torch.Tensor:
     return torch.where(
         bad, int(LinearSolverStatus.singular), int(LinearSolverStatus.successful)
@@ -140,10 +136,12 @@ class DenseLUFactor:
 class DenseLUSolver(LinearSolver):
     """LU (``torch.linalg.lu_factor_ex``) with optional inertia from
     ``torch.linalg.eigvalsh`` at the reference's +-1e-8 thresholds — an
-    O(n^3) eigensolve per factorization, for tests."""
+    O(n^3) eigensolve per factorization, for tests.  A factor with
+    |U_ii| <= zero_tol * max(1, max|U_ii|) reads as singular."""
 
-    def __init__(self, compute_inertia: bool = False):
+    def __init__(self, compute_inertia: bool = False, zero_tol: float = 1e-14):
         self.compute_inertia = compute_inertia
+        self.zero_tol = zero_tol
 
     def symbolic(self, kkt: torch.Tensor) -> LinearSolverResults:
         if kkt.shape[-2] != kkt.shape[-1]:
@@ -153,7 +151,7 @@ class DenseLUSolver(LinearSolver):
     def numeric(self, kkt: torch.Tensor) -> DenseLUFactor:
         lu, piv, _ = torch.linalg.lu_factor_ex(kkt)  # singular U reads as status, not an error
         u = torch.diagonal(lu).abs()
-        bad = (u <= LU_ZERO_TOL * torch.clamp(u.max(), min=1.0)).any() | u.isnan().any()
+        bad = (u <= self.zero_tol * torch.clamp(u.max(), min=1.0)).any() | u.isnan().any()
         if self.compute_inertia:
             w = torch.linalg.eigvalsh(kkt)
             pos = (w > 1e-8).sum()

@@ -19,8 +19,8 @@ the value it must have at a usable iterate.  A wrong SC inertia surfaces as
 negative curvature, which sets the error status of the solve.
 
 CG is a host loop with one flag read per iteration, the JAX package's
-``while_loop`` with its stopping rule: ||r|| <= CG_TOL (1 + ||rhs||), at
-most CG_MAXITER iterations, stopped early by nonpositive curvature.
+``while_loop`` with its stopping rule: ||r|| <= cg_tol (1 + ||rhs||), at
+most cg_maxiter iterations, stopped early by nonpositive curvature.
 
 With a mesh, each rank factors its own contiguous blocks of the KKT padded
 to a multiple of the rank count, and the Jacobi diagonal, the inertia, the
@@ -57,11 +57,6 @@ from parapint_tpu_torch.linalg.schur import (
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_rows
 from parapint_tpu_torch.parallel.mesh import BlockAxis, all_reduce_max, all_reduce_sum
 
-# CG stopping rule (the JAX package's defaults; no caller sets others)
-CG_TOL = 1e-12
-CG_MAXITER = 200
-
-
 @dataclasses.dataclass(frozen=True)
 class PCGSchurFactor:
     block_W: torch.Tensor  # (N, npad, npad) L^{-1} of the equilibrated blocks
@@ -87,7 +82,11 @@ class PCGSchurComplementSolver(LinearSolver):
 
     ``block_size``: panel width of the block factorization;
     ``factor_dtype``: the blocks' factor dtype (float32 sends the panels to
-    the ``ldl_panels_slab_winv`` kernel entry).  ``n_numeric`` counts
+    the ``ldl_panels_slab_winv`` kernel entry); ``zero_tol`` as for
+    ``SchurComplementSolver``; CG stops when ||r|| <= ``cg_tol`` (1 +
+    ||rhs||) or after ``cg_maxiter`` iterations; ``refine_steps`` is kept
+    (None reads 0) and runs no pass: CG iterates to its tolerance on the
+    coupling system, as in the JAX solver.  ``n_numeric`` counts
     numeric factorizations, ``n_solves`` back solves (two block applies
     each, plus one per CG iteration) and ``cg_iterations`` lists the CG
     iterations of each back solve.  ``mesh`` (a 1-D ``DeviceMesh`` holding
@@ -97,12 +96,27 @@ class PCGSchurComplementSolver(LinearSolver):
     every rank (``schur.gather_kkt``), which then solves the whole system.
     """
 
-    def __init__(self, mesh=None, axis_name: str = "blocks", block_size: int = 128,
-                 factor_dtype=None):
+    def __init__(
+        self,
+        mesh=None,
+        axis_name: str = "blocks",
+        block_size: int = 128,
+        zero_tol: float = 0.0,
+        factor_dtype=None,
+        cg_tol: float = 1e-12,
+        cg_maxiter: int = 200,
+        refine_steps: Optional[int] = None,
+    ):
+        self.mesh = mesh
+        self.axis_name = axis_name
         self.axis = None if mesh is None else BlockAxis.of(mesh, axis_name)
         self.group = None if mesh is None else self.axis.group
         self.block_size = block_size
+        self.zero_tol = zero_tol
         self.factor_dtype = factor_dtype
+        self.cg_tol = cg_tol
+        self.cg_maxiter = cg_maxiter
+        self.refine_steps = 0 if refine_steps is None else refine_steps
         self.n_numeric = 0
         self.n_solves = 0
         self.cg_iterations = []
@@ -124,7 +138,7 @@ class PCGSchurComplementSolver(LinearSolver):
         Jacobi diagonal, inertia and status are summed over the group."""
         nc = kkt.q.shape[-1]
         W, d, s, inertia, status = _factor_blocks_winv(
-            kkt.diag, kkt.mask, self.block_size, self.factor_dtype
+            kkt.diag, kkt.mask, self.block_size, self.zero_tol, self.factor_dtype
         )
         # exact diag(S) for the Jacobi preconditioner: the diagonals of the
         # local contributions summed onto their coupling rows
@@ -163,14 +177,14 @@ class PCGSchurComplementSolver(LinearSolver):
         """Jacobi-PCG; returns (y, converged, neg_curvature, iterations) with
         the two flags as device bools."""
         M = fact.precond.to(rhs.dtype)
-        thresh = CG_TOL * (1.0 + torch.linalg.norm(rhs))
+        thresh = self.cg_tol * (1.0 + torch.linalg.norm(rhs))
         y = torch.zeros_like(rhs)
         r = rhs
         p = M * r
         rz = torch.dot(r, p)
         neg = torch.zeros((), dtype=torch.bool, device=rhs.device)
         it = 0
-        while it < CG_MAXITER and bool(((torch.linalg.norm(r) > thresh) & ~neg).item()):
+        while it < self.cg_maxiter and bool(((torch.linalg.norm(r) > thresh) & ~neg).item()):
             Sp = self._sc_matvec(fact, p)
             pSp = torch.dot(p, Sp)
             neg = neg | (pSp <= 0.0)
@@ -189,7 +203,7 @@ class PCGSchurComplementSolver(LinearSolver):
     def solve_with_status(self, fact: PCGSchurFactor, rhs: BlockRhs):
         """Solve, returning the per-solve CG status too: negative curvature
         (S not positive definite) maps to ``singular`` so that inertia
-        correction engages; CG_MAXITER iterations without convergence map to
+        correction engages; ``cg_maxiter`` iterations without convergence map to
         ``error``."""
         self.n_solves += 1
         rhs = gather_rhs(fact, rhs)

@@ -49,13 +49,6 @@ from parapint_tpu_torch.ops.ordered_scatter import scatter_add_pairs, scatter_ad
 from parapint_tpu_torch.ops.winv_apply import winv_apply_fused, winv_apply_plain
 from parapint_tpu_torch.parallel.mesh import BlockAxis, all_reduce_max, all_reduce_sum
 
-# adaptive refinement: passes run while the float32 residual exceeds
-# REFINE_TRIGGER * ||rhs|| (and the probe's noise floor), at most
-# REFINE_MAX_PASSES of them
-REFINE_TRIGGER = 1e-5
-REFINE_MAX_PASSES = 8
-
-
 @dataclasses.dataclass(frozen=True)
 class BlockRhs:
     """Right-hand side / solution: blocks (N, nk), coupling (nc,)."""
@@ -147,7 +140,8 @@ class SchurFactor:
     block_W_hi: Optional[torch.Tensor] = None
     # first global block (= coupling group) of these blocks: nonzero on the
     # ranks of a sharded solver, whose factor holds their own blocks only
-    group_offset: int = 0
+    # (None = 0)
+    group_offset: Optional[int] = None
     # the KKT's global_blocks: set when it was rank-local, so the rhs of a
     # solve is rank-local too
     global_blocks: Optional[int] = None
@@ -263,10 +257,11 @@ def gather_rhs(fact, rhs: BlockRhs) -> BlockRhs:
     return BlockRhs(fact.rhs_axis.gather_blocks(rhs.blocks, fact.global_blocks), rhs.coupling)
 
 
-def _inertia_status(d: torch.Tensor, nk: int, mask: torch.Tensor):
+def _inertia_status(d: torch.Tensor, nk: int, mask: torch.Tensor, zero_tol: float):
     """Masked batch inertia (3,) int32 + merged status from the per-block
-    pivots d (N, npad); only exact zeros count as zero pivots."""
-    pos, neg, zero = ldl_inertia(d, n=nk)
+    pivots d (N, npad); a pivot with |d| <= zero_tol * max(1, max|d|) of its
+    block counts as zero (``ldl_inertia``)."""
+    pos, neg, zero = ldl_inertia(d, n=nk, zero_tol=zero_tol)
     ok = (pos + neg) == nk
     imask = mask.to(torch.int32)
     inertia = torch.stack(
@@ -281,14 +276,15 @@ def _inertia_status(d: torch.Tensor, nk: int, mask: torch.Tensor):
     return inertia, status
 
 
-def _factor_blocks(diag, mask, block_size: int):
+def _factor_blocks(diag, mask, block_size: int, zero_tol: float):
     """Batched packed LDL^T of the diagonal blocks + inertia/status."""
     LD, d = ldl_factor_batched(diag, block_size=block_size)
-    inertia, status = _inertia_status(d, diag.shape[-1], mask)
+    inertia, status = _inertia_status(d, diag.shape[-1], mask, zero_tol)
     return LD, inertia, status
 
 
-def _factor_blocks_winv(diag, mask, block_size: int, factor_dtype=None, apply_dtype=None):
+def _factor_blocks_winv(diag, mask, block_size: int, zero_tol: float, factor_dtype=None,
+                        apply_dtype=None):
     """Batched LDL^T of Ruiz-equilibrated blocks: returns (W, d, s, inertia,
     status) with K_i^{-1} = s W^T D^{-1} W s.  Equilibration keeps a
     lower-precision factorization's pivot signs — hence the inertia — intact
@@ -305,9 +301,9 @@ def _factor_blocks_winv(diag, mask, block_size: int, factor_dtype=None, apply_dt
     diag = diag * s[:, :, None] * s[:, None, :]
     if apply_dtype is None or apply_dtype == diag.dtype:
         LD, d, W = ldl_factor_winv_batched(diag, block_size=block_size)
-        inertia, status = _inertia_status(d, nk, mask)
+        inertia, status = _inertia_status(d, nk, mask, zero_tol)
         return W, d, s, inertia, status
-    LD, inertia, status = _factor_blocks(diag, mask, block_size)
+    LD, inertia, status = _factor_blocks(diag, mask, block_size, zero_tol)
     LD = LD.to(apply_dtype)
     s = s.to(apply_dtype)
     W, d = ldl_winv(LD, min(block_size, LD.shape[-1]))
@@ -487,11 +483,11 @@ def _chain_border_ok(assembly, border_loc, nc: int) -> bool:
 def _border_apply_chain(border_loc, v, nc: int, group_offset: int = 0):
     """Chain-topology sum_i P_i A_i v_i -> (nc,): rows [0, ns) of block b
     target group b-1, rows [ns, 2ns) group b, b counted from
-    ``group_offset``."""
+    ``group_offset`` (None = 0)."""
     Nb, L, _ = border_loc.shape
     ns = L // 2
     ng = nc // ns
-    off = group_offset
+    off = group_offset or 0
     contrib = (border_loc.to(v.dtype) @ v[:, :, None])[..., 0]
     out = contrib.new_zeros((ng + 2, ns))
     out[off + 1 : off + Nb + 1] += contrib[:, ns:]  # fwd of block b -> group b
@@ -502,9 +498,9 @@ def _border_apply_chain(border_loc, v, nc: int, group_offset: int = 0):
 def _border_y_loc_chain(y, Nb: int, L: int, group_offset: int = 0):
     """(Nb, L) per-block local rows of the coupling vector for the chain
     topology: rows [0, ns) read group b-1, rows [ns, 2ns) read group b, b
-    counted from ``group_offset``."""
+    counted from ``group_offset`` (None = 0)."""
     ns = L // 2
-    off = group_offset
+    off = group_offset or 0
     yg = y.reshape(-1, ns)
     z = yg.new_zeros((1, ns))
     ext = torch.cat([z, yg, z], dim=0)  # ext[g + 1] = group g
@@ -592,12 +588,15 @@ class SchurComplementSolver(LinearSolver):
     ``explicit_inverse``: W form (else packed LDL^T); ``factor_dtype``: the
     blocks' factor dtype; ``apply_dtype``: hybrid precision (see
     :func:`_factor_blocks_winv`); ``refine_steps``: None = adaptive
-    refinement (an f32 residual probe decides each f64 pass, at most
-    REFINE_MAX_PASSES), an int = that many fixed passes;
-    ``w_store_dtype`` (e.g. torch.bfloat16): store W for the back solves in
-    this dtype (the SC is formed from the full W); ``w_auto_gate``: with
-    ``w_store_dtype`` and adaptive refinement, keep the full W and retry a
-    stalled solve with it.  Only exact zero pivots count as zero.
+    refinement (an f32 residual probe decides each f64 pass: passes run
+    while the residual exceeds ``refine_trigger`` * ||rhs|| and the probe's
+    noise floor, at most ``refine_max_passes`` of them), an int = that many
+    fixed passes; ``w_store_dtype`` (e.g. torch.bfloat16): store W for the
+    back solves in this dtype (the SC is formed from the full W);
+    ``w_auto_gate``: with ``w_store_dtype`` and adaptive refinement, keep
+    the full W and retry a stalled solve with it.  ``zero_tol``: a block
+    pivot with |d| <= zero_tol * max(1, max|d|) counts as zero (default:
+    exact zeros only); it also goes to the default coupling solver.
     ``n_numeric`` counts numeric factorizations,
     ``n_solves`` back solves through the Schur complement (two block
     applies each) and ``n_gate_fallbacks`` the retries on the full W.
@@ -616,10 +615,13 @@ class SchurComplementSolver(LinearSolver):
         self,
         schur_complement_solver: Optional[LinearSolver] = None,
         block_size: int = 128,
+        zero_tol: float = 0.0,
         explicit_inverse: bool = False,
         refine_steps: Optional[int] = None,
         factor_dtype=None,
         apply_dtype=None,
+        refine_trigger: float = 1e-5,
+        refine_max_passes: int = 8,
         w_store_dtype=None,
         w_auto_gate: bool = True,
     ):
@@ -628,6 +630,7 @@ class SchurComplementSolver(LinearSolver):
             if schur_complement_solver is not None
             else DenseLDLSolver(
                 block_size=block_size,
+                zero_tol=zero_tol,
                 explicit_inverse=explicit_inverse,
                 # the SC is formed in factor_dtype already; the global
                 # refinement covers it
@@ -635,6 +638,7 @@ class SchurComplementSolver(LinearSolver):
             )
         )
         self.block_size = block_size
+        self.zero_tol = zero_tol
         self.explicit_inverse = explicit_inverse
         self.factor_dtype = factor_dtype
         self.apply_dtype = apply_dtype
@@ -642,6 +646,8 @@ class SchurComplementSolver(LinearSolver):
         self.w_auto_gate = w_auto_gate
         self.adaptive_refine = refine_steps is None
         self.refine_steps = 1 if refine_steps is None else refine_steps
+        self.refine_trigger = refine_trigger
+        self.refine_max_passes = refine_max_passes
         self.n_numeric = 0
         self.n_solves = 0
         self.n_gate_fallbacks = 0
@@ -687,7 +693,8 @@ class SchurComplementSolver(LinearSolver):
         if self.explicit_inverse:
             with record_function("sc_solver.factor_blocks"):
                 W, d, s, blk_inertia, blk_status = _factor_blocks_winv(
-                    lk.diag, lk.mask, self.block_size, self.factor_dtype, self.apply_dtype
+                    lk.diag, lk.mask, self.block_size, self.zero_tol, self.factor_dtype,
+                    self.apply_dtype,
                 )
             LD = None
             with record_function("sc_solver.form_sc"):
@@ -709,7 +716,9 @@ class SchurComplementSolver(LinearSolver):
         else:
             W = d = s = W_hi = None
             with record_function("sc_solver.factor_blocks"):
-                LD, blk_inertia, blk_status = _factor_blocks(lk.diag, lk.mask, self.block_size)
+                LD, blk_inertia, blk_status = _factor_blocks(
+                    lk.diag, lk.mask, self.block_size, self.zero_tol
+                )
             if self.apply_dtype is not None and LD.dtype != self.apply_dtype:
                 # hybrid precision, LD form: pivots/inertia from the
                 # factor-dtype sweep, solves in apply_dtype (no equilibration)
@@ -794,8 +803,8 @@ class SchurComplementSolver(LinearSolver):
 
     def _solve_refined(self, fact: SchurFactor, rhs: BlockRhs):
         """(solution, refined_ok).  Adaptive mode refines while the f32
-        probe fails, at most REFINE_MAX_PASSES passes, as a host loop with
-        one flag read per pass."""
+        probe fails, at most ``refine_max_passes`` passes, as a host loop
+        with one flag read per pass."""
 
         def up(b: BlockRhs) -> BlockRhs:  # promote to the rhs dtype
             return BlockRhs(b.blocks.to(rhs.blocks.dtype), b.coupling.to(rhs.coupling.dtype))
@@ -808,12 +817,12 @@ class SchurComplementSolver(LinearSolver):
 
         def solve_adaptive(hi):
             x = up(self._solve_once(fact, rhs, hi))
-            need = _refine_probe(fact, rhs, x, REFINE_TRIGGER, self.group)
+            need = _refine_probe(fact, rhs, x, self.refine_trigger, self.group)
             passes = 0
-            while passes < REFINE_MAX_PASSES and bool(need.item()):
+            while passes < self.refine_max_passes and bool(need.item()):
                 x = refine_pass(x, hi)
                 passes += 1
-                need = _refine_probe(fact, rhs, x, REFINE_TRIGGER, self.group)
+                need = _refine_probe(fact, rhs, x, self.refine_trigger, self.group)
             return x, need
 
         if self.adaptive_refine:

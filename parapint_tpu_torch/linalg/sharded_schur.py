@@ -67,16 +67,20 @@ class ShardedSchurComplementSolver(SchurComplementSolver):
         axis_name: str = "blocks",
         schur_complement_solver=None,
         block_size: int = 128,
+        zero_tol: float = 0.0,
         explicit_inverse: bool = False,
         refine_steps: Optional[int] = None,
         factor_dtype=None,
         apply_dtype=None,
+        refine_trigger: float = 1e-5,
+        refine_max_passes: int = 8,
         w_store_dtype=None,
     ):
         super().__init__(
             schur_complement_solver=schur_complement_solver, block_size=block_size,
-            explicit_inverse=explicit_inverse, refine_steps=refine_steps,
+            zero_tol=zero_tol, explicit_inverse=explicit_inverse, refine_steps=refine_steps,
             factor_dtype=factor_dtype, apply_dtype=apply_dtype,
+            refine_trigger=refine_trigger, refine_max_passes=refine_max_passes,
             w_store_dtype=w_store_dtype, w_auto_gate=False,
         )
         self.mesh = mesh

@@ -19,10 +19,6 @@ from parapint_tpu_torch.linalg.base import LinearSolver
 from parapint_tpu_torch.linalg.results import LinearSolverResults, LinearSolverStatus
 from parapint_tpu_torch.linalg.schur import _factor_blocks_winv
 
-# default panel width of the level factorizations: ns-wide tiles (49 on the
-# Burgers chain) snap up to one 56-wide panel
-BLOCK_SIZE = 64
-
 
 @dataclasses.dataclass(frozen=True)
 class BlockTridiag:
@@ -96,9 +92,17 @@ def _winv_to_inverse(W, d, s, ns: int):
     return Minv * s[:, :, None] * s[:, None, :]
 
 
-def cr_factor(tri: BlockTridiag, block_size: int = BLOCK_SIZE) -> CRFactor:
-    """Factor a symmetric block-tridiagonal matrix by cyclic reduction;
-    ``block_size`` is the panel width of the level factorizations."""
+def cr_factor(
+    tri: BlockTridiag,
+    block_size: int = 64,
+    zero_tol: float = 0.0,
+    factor_dtype=None,
+) -> CRFactor:
+    """Factor a symmetric block-tridiagonal matrix by cyclic reduction.
+    ``block_size`` is the panel width of the level factorizations (ns-wide
+    tiles narrower than it snap up to one panel of a multiple of 8: 49 ->
+    56 on the Burgers chain); the tiles factor in ``factor_dtype`` (None:
+    the tiles' dtype); ``zero_tol`` as for ``SchurComplementSolver``."""
     m, ns = tri.m, tri.ns
     M = _next_pow2m1(m)
     diag, upper = tri.diag, tri.upper
@@ -119,7 +123,7 @@ def cr_factor(tri: BlockTridiag, block_size: int = BLOCK_SIZE) -> CRFactor:
     while True:
         K = (M - 1) // 2
         W, d, s, lvl_inertia, lvl_status = _factor_blocks_winv(
-            diag[0::2], mask[0::2], block_size
+            diag[0::2], mask[0::2], block_size, zero_tol, factor_dtype
         )
         tinv = _winv_to_inverse(W, d, s, ns).to(dt)
         inertia = inertia + lvl_inertia
@@ -222,10 +226,20 @@ def _cr_solve_tiles(fact: CRFactor, r: torch.Tensor) -> torch.Tensor:
 class BlockTridiagSolver(LinearSolver):
     """LinearSolver over block-tridiagonal systems (cyclic reduction);
     ``numeric`` takes a :class:`BlockTridiag` or a dense matrix (with the
-    constructor's ``ns``)."""
+    constructor's ``ns``).  ``block_size``, ``zero_tol`` and
+    ``factor_dtype``: as for :func:`cr_factor`."""
 
-    def __init__(self, ns: Optional[int] = None):
+    def __init__(
+        self,
+        ns: Optional[int] = None,
+        block_size: int = 64,
+        zero_tol: float = 0.0,
+        factor_dtype=None,
+    ):
         self.ns = ns
+        self.block_size = block_size
+        self.zero_tol = zero_tol
+        self.factor_dtype = factor_dtype
 
     def _as_tridiag(self, sc) -> BlockTridiag:
         if isinstance(sc, BlockTridiag):
@@ -239,7 +253,12 @@ class BlockTridiagSolver(LinearSolver):
         return LinearSolverResults(status=LinearSolverStatus.successful)
 
     def numeric(self, sc) -> CRFactor:
-        return cr_factor(self._as_tridiag(sc))
+        return cr_factor(
+            self._as_tridiag(sc),
+            block_size=self.block_size,
+            zero_tol=self.zero_tol,
+            factor_dtype=self.factor_dtype,
+        )
 
     def solve(self, fact: CRFactor, rhs: torch.Tensor) -> torch.Tensor:
         return cr_solve(fact, rhs)

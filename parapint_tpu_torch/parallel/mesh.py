@@ -15,27 +15,35 @@ group.
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 
-def block_mesh(n_devices: Optional[int] = None, axis_name: str = "blocks"):
-    """A 1-D mesh over the first ``n_devices`` ranks (default: all) of the
-    default process group.  Every rank must call it (a sub-mesh creates a
-    process group); a rank outside the mesh gets one whose
-    ``get_coordinate()`` is None.  The mesh's device type only labels it:
-    collectives run on the default group's backend, and gloo reduces CPU
-    and CUDA tensors alike."""
+def block_mesh(
+    n_devices: Optional[int] = None,
+    axis_name: str = "blocks",
+    devices: Optional[Sequence[int]] = None,
+):
+    """A 1-D mesh over the first ``n_devices`` (default: all) of
+    ``devices``, the ranks of the default process group in mesh order
+    (default: every rank, in rank order).  Every rank must call it (a
+    sub-mesh creates a process group); a rank outside the mesh gets one
+    whose ``get_coordinate()`` is None.  The mesh's device type only labels
+    it: collectives run on the default group's backend, and gloo reduces
+    CPU and CUDA tensors alike."""
     from torch.distributed.device_mesh import DeviceMesh
 
     world = dist.get_world_size()
-    n = world if n_devices is None else n_devices
-    if not 1 <= n <= world:
-        raise ValueError(f"n_devices {n_devices} outside [1, {world}]")
+    ranks = list(range(world)) if devices is None else [int(r) for r in devices]
+    if not ranks or len(set(ranks)) != len(ranks) or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"devices {devices} are not distinct ranks in [0, {world})")
+    n = len(ranks) if n_devices is None else n_devices
+    if not 1 <= n <= len(ranks):
+        raise ValueError(f"n_devices {n_devices} outside [1, {len(ranks)}]")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, list(range(n)), mesh_dim_names=(axis_name,))
+    return DeviceMesh(device_type, ranks[:n], mesh_dim_names=(axis_name,))
 
 
 def largest_divisor_mesh(n_blocks: int, axis_name: str = "blocks"):

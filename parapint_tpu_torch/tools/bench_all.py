@@ -153,11 +153,10 @@ def _row_factories():
         "burgers_256blocks_dense_sc": lambda d: (build_problem(50, 512, 256, device=d), _fast()),
         # the reference's scaling knob at a size where the dense block form
         # would hold 64 dense 3622-wide blocks for the diagonal and as many
-        # for W; the banded form stores bands of width 84.  The JAX tool
-        # passes factor_dtype=float32, the port's banded solver's constant.
+        # for W; the banded form stores bands of width 84
         "burgers_banded_nfex200_64blocks": lambda d: (
             build_problem(200, 256, 64, block_form="banded", device=d),
-            ptt.BandedSchurComplementSolver(schur_complement_solver=cr()),
+            ptt.BandedSchurComplementSolver(schur_complement_solver=cr(), factor_dtype=torch.float32),
         ),
     }
 

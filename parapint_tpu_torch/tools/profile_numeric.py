@@ -54,7 +54,9 @@ def main(argv=None) -> dict:
     times = {}
     _, times["numeric_total"] = timed_fused(solver.numeric, kkt)
     out, times["factor_blocks_winv"] = timed_fused(
-        lambda diag, mask: S._factor_blocks_winv(diag, mask, bs, solver.factor_dtype, solver.apply_dtype),
+        lambda diag, mask: S._factor_blocks_winv(
+            diag, mask, bs, solver.zero_tol, solver.factor_dtype, solver.apply_dtype
+        ),
         kkt.diag, kkt.mask,
     )
     W, d, s = out[0], out[1], out[2]

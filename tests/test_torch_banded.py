@@ -10,6 +10,9 @@ borders to 1e-12 (the reference's probe-vs-dense bound); float64 solves to
 probes of the same model); inertia exact.
 """
 
+import contextlib
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -109,13 +112,13 @@ def _kkt_from_reference(j_kkt) -> BandedLocalBlockKKT:
     )
 
 
-def test_solver_solve_and_inertia_match_reference(pair):
+def test_solver_solve_and_inertia_match_reference(pair, jax_factors):
     j_iface, t_iface, (j_data, j_kkt), (t_data, _) = pair
     rhs = j_data[1]
     jsol = pt.BandedSchurComplementSolver(
         schur_complement_solver=pt.BlockTridiagSolver(ns=j_iface.ns)
     )
-    jf = jax.jit(jsol.numeric)(j_kkt)
+    jf = _jax_factor(jax_factors, jsol, j_kkt)
     jx, jst = jax.jit(jsol.solve_with_status)(jf, rhs)
     tsol = ptt.BandedSchurComplementSolver(
         schur_complement_solver=ptt.BlockTridiagSolver(ns=t_iface.ns)
@@ -217,3 +220,101 @@ def test_thomas_factor_solve_inertia_vs_dense_and_reference():
     np.testing.assert_allclose(S.numpy(), np.asarray(jS), atol=1e-10)
     np.testing.assert_allclose(fact.tinv.numpy(), np.asarray(jf.tinv), rtol=1e-9, atol=1e-12)
     assert fact.inertia.tolist() == np.asarray(jf.inertia).tolist()
+
+
+def _solve_counted(solver, fact, rhs):
+    """(x, status, refinement passes) of ``solve_with_status``, the passes
+    counted from the solver's ``_solve_once`` calls; the JAX solver's runs
+    eagerly (``jax.disable_jit``: its ``lax.while_loop`` is a host loop)."""
+    calls = [0]
+    once = solver._solve_once
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return once(*a, **k)
+
+    eager = jax.disable_jit() if isinstance(solver, pt.BandedSchurComplementSolver) else (
+        contextlib.nullcontext())
+    solver._solve_once = counted
+    try:
+        with eager:
+            x, status = solver.solve_with_status(fact, rhs)
+    finally:
+        del solver._solve_once
+    return x, int(status), calls[0] - 1
+
+
+# (arguments of both solvers, float32 KKT): every solve is held to
+# tests/test_banded.py's dense-parity 1e-9
+BANDED_ARGS = {
+    # the fixture's default factor (shared with the test above), no pass
+    "refine_steps0": (dict(refine_steps=0), False),
+    # the KKT rounded to float32, its tiles factored in float64 (the column
+    # sweep) as one panel each, two fixed float64 passes
+    "refine_steps2_f32_kkt_factor_f64_tile_block_size128_zero_tol": (
+        dict(refine_steps=2, factor_dtype="float64", tile_block_size=128, zero_tol=1e-10), True),
+}
+# what the numeric reads: the refine cases share the default factor
+NUMERIC_ARGS = ("zero_tol", "factor_dtype", "tile_block_size")
+
+
+@pytest.fixture(scope="module")
+def jax_factors():
+    """JAX factors by (float32 KKT, numeric arguments), shared by the tests."""
+    return {}
+
+
+def _jax_factor(jax_factors, solver, kkt, f32=False):
+    key = (f32, *(str(getattr(solver, name)) for name in NUMERIC_ARGS))
+    if key not in jax_factors:
+        jax_factors[key] = jax.jit(solver.numeric)(kkt)
+    return jax_factors[key]
+
+
+@pytest.mark.parametrize("case", list(BANDED_ARGS))
+def test_solver_arguments_match_reference(pair, jax_factors, case):
+    """The banded solver's restored arguments at user values, both packages
+    built with the same ones on the same KKT: fixed refinement passes,
+    status and inertia exactly equal, the Thomas tile inverses of the same
+    shape and dtype, the solutions within 1e-9 of each other.
+    ``tile_block_size=128`` exceeds the fixture's tile (each tile is one
+    panel, as in the JAX package); the float64 factor of the fixture's KKT
+    rounded to float32 takes the column sweep."""
+    kw, f32 = BANDED_ARGS[case]
+    kw = dict(kw)
+    fd = kw.pop("factor_dtype", None)
+    j_iface, _, (j_data, j_kkt), _ = pair
+    if f32:
+        j_kkt = dataclasses.replace(j_kkt, **{
+            name: getattr(j_kkt, name).astype(jnp.float32) for name in ("sym_bands", "border_loc", "q")})
+    rhs = j_data[1]
+    jsol = pt.BandedSchurComplementSolver(
+        schur_complement_solver=pt.BlockTridiagSolver(ns=j_iface.ns),
+        factor_dtype=None if fd is None else getattr(jnp, fd), **kw,
+    )
+    tsol = ptt.BandedSchurComplementSolver(
+        schur_complement_solver=ptt.BlockTridiagSolver(ns=j_iface.ns),
+        factor_dtype=None if fd is None else getattr(torch, fd), **kw,
+    )
+    for name in ("zero_tol", "refine_steps", "refine_trigger", "refine_max_passes",
+                 "tile_block_size", "adaptive_refine"):
+        assert getattr(tsol, name) == getattr(jsol, name), name
+    jf = _jax_factor(jax_factors, jsol, j_kkt, f32)
+    jx, j_status, j_passes = _solve_counted(jsol, jf, rhs)
+    tf = tsol.numeric(_kkt_from_reference(j_kkt))
+    tx, t_status, t_passes = _solve_counted(
+        tsol, tf, BlockRhs(torch.as_tensor(np.array(rhs.blocks)), torch.as_tensor(np.array(rhs.coupling)))
+    )
+    flat = lambda b: np.concatenate([_np(b.blocks).reshape(-1), _np(b.coupling)])
+    scale = np.abs(flat(jx)).max()
+    d = np.abs(flat(tx) - flat(jx)).max()
+    print(f"{case}: passes JAX {j_passes} port {t_passes}, status JAX {j_status} port "
+          f"{t_status}, max|dx| {d:.3e} (max|x| {scale:.3e})")
+    assert t_status == j_status == 0
+    assert t_passes == j_passes
+    if not tsol.adaptive_refine:
+        assert t_passes == tsol.refine_steps
+    assert tuple(int(v) for v in tsol.inertia(tf)) == tuple(int(v) for v in jsol.inertia(jf))
+    assert tuple(tf.thomas.tinv.shape) == tuple(jf.thomas.tinv.shape)
+    assert tf.thomas.tinv.dtype == getattr(torch, str(jf.thomas.tinv.dtype))
+    assert d <= 1e-9 * scale

@@ -51,7 +51,6 @@ KNOBS = {
     "bf16_w": {"PT_BENCH_BLOCK": "dense", "PT_BENCH_W": "bf16"},
     "adaptive": {"PT_BENCH_BLOCK": "dense", "PT_BENCH_REFINE": "adaptive"},
 }
-BANDED_CONSTANTS = {"factor_dtype": None, "refine_steps": 1, "adaptive_refine": True}
 ENV = ("PT_BENCH_BLOCK", "PT_BENCH_TS", "PT_BENCH_SC", "PT_BENCH_W", "PT_BENCH_REFINE")
 
 
@@ -78,13 +77,6 @@ def test_solver_knobs_match_jax(setting, monkeypatch):
         monkeypatch.setenv(k, v)
     iface = types.SimpleNamespace(ns=5)
     want, got = _knobs(jbench._make_solver(iface)), _knobs(bench.make_solver(iface))
-    if want["class"] == "BandedSchurComplementSolver":
-        # the port's banded solver keeps these as module constants (float32
-        # factors, adaptive refinement); the JAX bench leaves them at the
-        # JAX defaults that mean the same
-        for k, jax_default in BANDED_CONSTANTS.items():
-            assert want[k] == jax_default and got[k] == "absent", k
-            want[k] = "absent"
     assert got == want
 
 

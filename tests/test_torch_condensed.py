@@ -191,3 +191,36 @@ def test_harness_refuses_psc_and_cpu_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             perf.run(method="csc", **HARNESS)
+
+
+def test_condensed_arguments_match_reference(condensed_cases):
+    """``CondensedLSQSolver(zero_tol=1e-10, factor_dtype=float32)`` on the
+    n_q=32, tile 16 system, both packages built alike and run under
+    ``jax.jit`` as the fixture runs the JAX solver: inertia and status
+    equal (and the dense eigenvalues' inertia), G's level inverses in the
+    bands' dtype, the solutions within 1e-5 x max|x| of the JAX solver's
+    (a float32 factor of G: tests/test_torch_schur.py's float32 bar)."""
+    c = condensed_cases[(32, 16)]
+    N, nk, nt = c["N"], c["nk"], c["nt"]
+    jsolver = JSolver(tile_size=16, zero_tol=1e-10, factor_dtype=jnp.float32)
+    tsolver = ptt.CondensedLSQSolver(tile_size=16, zero_tol=1e-10, factor_dtype=torch.float32)
+    assert tsolver._dense.zero_tol == jsolver._dense.zero_tol == tsolver.zero_tol
+    jkkt = JKKT(A_bands=jnp.asarray(c["A_bands"]), q_c=jnp.zeros((nt, nt)), n_t=nt, n_blocks=N)
+    jfact = jax.jit(jsolver.numeric)(jkkt)
+    rhs = c["rhs"]
+    jsol = jax.jit(lambda f, r: jsolver.solve(f, r, kkt=jkkt))(
+        jfact, JBlockRhs(blocks=jnp.asarray(rhs[: N * nk].reshape(N, nk)),
+                         coupling=jnp.asarray(rhs[N * nk :])))
+    kkt = condensed_kkt_from_numpy(c["A_bands"], np.zeros((nt, nt)), nt, N, "cpu")
+    fact = tsolver.numeric(kkt)
+    trhs = torch.as_tensor(rhs)
+    sol = tsolver.solve(fact, BlockRhs(blocks=trhs[: N * nk].reshape(N, nk), coupling=trhs[N * nk :]),
+                        kkt=kkt)
+    x = np.concatenate([sol.blocks.numpy().ravel(), sol.coupling.numpy()])
+    jx = np.concatenate([np.asarray(jsol.blocks).ravel(), np.asarray(jsol.coupling)])
+    inertia = tuple(int(v) for v in tsolver.inertia(fact))
+    assert inertia == tuple(int(v) for v in jsolver.inertia(jfact)) == c["eig"]
+    assert int(tsolver.status(fact)) == int(jsolver.status(jfact)) == 0
+    assert [t.dtype for t in fact.g_fact.tinv] == [torch.float64] * len(jfact.g_fact.tinv)
+    print(f"max|d| to JAX {np.abs(x - jx).max():.3e} (max|x| {np.abs(jx).max():.3e})")
+    assert np.abs(x - jx).max() <= 1e-5 * np.abs(jx).max()

@@ -94,3 +94,32 @@ def test_dense_lu_solver_matches_reference(compute_inertia):
             ts.inertia(tf)
     sing = ts.numeric(torch.zeros(3, 3, dtype=torch.float64))
     assert int(ts.status(sing)) == int(js.status(js.numeric(jnp.zeros((3, 3))))) == 2
+
+
+@pytest.mark.parametrize("zero_tol", [1e-14, 1e-6])
+def test_dense_lu_zero_tol_matches_reference(zero_tol):
+    """``DenseLUSolver(zero_tol)``: a factor whose smallest |U_ii| is ~1e-9
+    of the largest reads singular at 1e-6 and successful at the default
+    1e-14, as in the JAX solver."""
+    rng = np.random.default_rng(4)
+    Q, _ = np.linalg.qr(rng.standard_normal((6, 6)))
+    K = Q @ np.diag([3.0, 1e-9, 2.0, -1.0, 5.0, -4.0]) @ Q.T
+    js = pt.DenseLUSolver(zero_tol=zero_tol)
+    ts = ptt.DenseLUSolver(zero_tol=zero_tol)
+    assert ts.zero_tol == js.zero_tol
+    t_status = int(ts.status(ts.numeric(torch.as_tensor(K))))
+    assert t_status == int(js.status(js.numeric(jnp.asarray(K))))
+    assert t_status == (2 if zero_tol > 1e-10 else 0)
+
+
+def test_results_and_logger_match_reference():
+    """``LinearSolver.results`` (status and inertia read to the host) and
+    ``getLogger`` (``algorithms.<class>``) of both packages' solvers."""
+    K, _ = kkt(12, 5, seed=3)
+    for cls in ("DenseLDLSolver", "DenseLUSolver"):
+        kw = {} if cls == "DenseLDLSolver" else dict(compute_inertia=True)
+        js, ts = getattr(pt, cls)(**kw), getattr(ptt, cls)(**kw)
+        jr = js.results(js.numeric(jnp.asarray(K)))
+        tr = ts.results(ts.numeric(torch.as_tensor(K)))
+        assert (int(tr.status), tr.inertia) == (int(jr.status), jr.inertia) == (0, (12, 5, 0))
+        assert ts.getLogger().name == js.getLogger().name == f"algorithms.{cls}"

@@ -323,3 +323,39 @@ def test_burgers_main_matches_reference():
     npts, nt = 9, 2
     for i in range(3):
         np.testing.assert_allclose(xs[i, nt * npts + 1 : nt * npts + 8], xs[i + 1, 1:8], atol=1e-10)
+
+
+def test_timer_and_state_accessor_match_reference():
+    """``numeric_factorization(..., timer=)`` and
+    ``try_factorization_and_reallocation(..., timer=)`` on the bilinear
+    model's singular start: the same coefficient, status and retry count in
+    both packages, and each package's timer left as the JAX package leaves
+    its own (these functions time no phase; ``ip_solve`` times the whole
+    call as "numeric").  ``interface_state_or``: the initial iterate before
+    a solve, the interface's current one after."""
+    from parapint_tpu.algorithms import interior_point as jip
+    from parapint_tpu_torch.algorithms import interior_point as tip
+
+    out = []
+    for pkg, ip, timer_cls, kw in ((pt, jip, JTimer, {}), (ptt, tip, HierarchicalTimer, {"device": DEV})):
+        iface = pkg.InteriorPointInterface(_bilinear(pkg, kw))
+        options = pkg.IPOptions()
+        options.linalg.solver = pkg.DenseLDLSolver(block_size=8)
+        state = ip.interface_state_or(iface)
+        init = iface.init_state()
+        assert all(np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(state.primals, init.primals))
+        data = iface.eval_kkt_data(state, 1e-1)
+        timer = timer_cls()
+        _, status, count = ip.try_factorization_and_reallocation(
+            iface.assemble_kkt(data, 0.0, 0.0), options.linalg.solver,
+            options.linalg.reallocation_factor, options.linalg.max_num_reallocations, timer=timer,
+        )
+        _, reg_coef = ip.numeric_factorization(
+            interface=iface, data=data, options=options,
+            inertia_coef=options.inertia_correction.init_coef, timer=timer,
+        )
+        iface._current_state = iface.apply_step(state, state, 0.5, 0.5)
+        assert ip.interface_state_or(iface) is iface._current_state
+        out.append((status.name, count, reg_coef, sorted(timer._root.children)))
+    assert out[0] == out[1] and out[1][0] == "singular"

@@ -17,11 +17,16 @@ Tolerances:
   JAX package's status, objective within 1e-6 relative, iterations within
   1 (both printed).
 - failure paths (tests/test_round2_fixes.py): negative curvature reads
-  ``singular`` and ``solve`` NaN-poisons; a starved CG (the port's
-  ``CG_MAXITER`` set to the JAX test's ``cg_maxiter``) reads ``error``, the
-  JAX package's statuses agreeing; with no CG iteration at all ``ip_solve``
-  raises and the fused driver returns status error with the incoming
-  state.
+  ``singular`` and ``solve`` NaN-poisons; a starved CG (the JAX test's
+  ``cg_maxiter`` and ``cg_tol``, passed to both solvers) reads ``error``,
+  the JAX package's statuses agreeing; with no CG iteration at all
+  (``cg_maxiter=0``) ``ip_solve`` raises and the fused driver returns
+  status error with the incoming state.
+- the CG arguments at other values (``cg_tol`` 1e-14, ``cg_maxiter`` 0, 1
+  and 200, ``zero_tol``, ``refine_steps``): statuses and CG iterations
+  equal to the JAX solver's on the same system (its iterations counted by
+  ``jax_cg_iterations``), the arguments stored as the JAX solver stores
+  them.
 """
 
 import jax
@@ -38,7 +43,6 @@ from parapint_tpu.linalg.schur import LocalBlockKKT as JLocalBlockKKT
 from parapint_tpu.linalg.schur import _border_apply_local, _winv_apply_batched
 from parapint_tpu_torch.convert import block_kkt_from_numpy, block_rhs_from_numpy
 from parapint_tpu_torch.examples import burgers
-from parapint_tpu_torch.linalg import pcg_schur
 from parapint_tpu_torch.linalg.schur import BlockRhs
 from parapint_tpu_torch.utils.timer import HierarchicalTimer
 
@@ -191,58 +195,76 @@ def _local_system(q_scale, N=4, nk=16, L=3, seed=0):
     return diag, border, row_idx, q_scale * np.eye(L)
 
 
-def _both(system, monkeypatch, **kw):
+def _both(system, jax_cg=False, **kw):
     """(JAX status, port status, port solver, port fact, port rhs) of one
-    solve_with_status on the same system and an all-ones rhs; ``kw`` are the
-    JAX solver's CG arguments, the port's module constants."""
+    solve_with_status on the same system and an all-ones rhs; ``kw`` are
+    both solvers' arguments.  With ``jax_cg`` the JAX status is followed by
+    its CG iterations (``jax_cg_iterations``)."""
     diag, border, row_idx, q = system
     jkkt = JLocalBlockKKT.make(jnp.asarray(diag), jnp.asarray(border), row_idx.astype(np.int32),
                                jnp.asarray(q), assembly="shared")
     ones = lambda *s: np.ones(s)
     jsolver = pt.PCGSchurComplementSolver(block_size=8, **kw)
-    _, j_status = jsolver.solve_with_status(
-        jsolver.numeric(jkkt),
-        JBlockRhs(blocks=jnp.asarray(ones(*diag.shape[:2])), coupling=jnp.asarray(ones(q.shape[0]))),
-    )
+    jfact = jsolver.numeric(jkkt)
+    jrhs = JBlockRhs(blocks=jnp.asarray(ones(*diag.shape[:2])), coupling=jnp.asarray(ones(q.shape[0])))
+    _, j_status = jsolver.solve_with_status(jfact, jrhs)
     t = lambda a: torch.as_tensor(a)
     tkkt = ptt.linalg.LocalBlockKKT.make(t(diag), t(border), row_idx, t(q), assembly="shared")
-    monkeypatch.setattr(pcg_schur, "CG_TOL", kw.get("cg_tol", 1e-12))
-    monkeypatch.setattr(pcg_schur, "CG_MAXITER", kw.get("cg_maxiter", 200))
-    tsolver = ptt.PCGSchurComplementSolver(block_size=8)
+    tsolver = ptt.PCGSchurComplementSolver(block_size=8, **kw)
     fact = tsolver.numeric(tkkt)
     rhs = BlockRhs(blocks=t(ones(*diag.shape[:2])), coupling=t(ones(q.shape[0])))
     _, t_status = tsolver.solve_with_status(fact, rhs)
-    return int(j_status), int(t_status), tsolver, fact, rhs
+    j = (int(j_status), jax_cg_iterations(jsolver, jfact, jrhs)) if jax_cg else int(j_status)
+    return j, int(t_status), tsolver, fact, rhs
 
 
-def test_negative_curvature_sets_singular(monkeypatch):
-    j_status, t_status, solver, fact, rhs = _both(_local_system(q_scale=-5.0), monkeypatch)
+def test_negative_curvature_sets_singular():
+    j_status, t_status, solver, fact, rhs = _both(_local_system(q_scale=-5.0))
     assert int(solver.status(fact)) == int(ptt.LinearSolverStatus.successful)
     assert j_status == t_status == int(ptt.LinearSolverStatus.singular)
     bad = solver.solve(fact, rhs)
     assert bool(torch.isnan(bad.blocks).all()) and bool(torch.isnan(bad.coupling).all())
 
 
-def test_maxiter_starved_sets_error(monkeypatch):
+def test_maxiter_starved_sets_error():
     system = _local_system(q_scale=1000.0, N=3, nk=12, L=6, seed=3)
-    j_status, t_status, solver, _, _ = _both(system, monkeypatch, cg_maxiter=1, cg_tol=1e-14)
+    j_status, t_status, solver, _, _ = _both(system, cg_maxiter=1, cg_tol=1e-14)
     assert j_status == t_status == int(ptt.LinearSolverStatus.error)
     assert solver.cg_iterations == [1]
-    j_ok, t_ok, _, _, _ = _both(system, monkeypatch, cg_maxiter=200)
+    j_ok, t_ok, _, _, _ = _both(system, cg_maxiter=200)
     assert j_ok == t_ok == int(ptt.LinearSolverStatus.successful)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(cg_maxiter=0), dict(cg_maxiter=1, cg_tol=1e-14), dict(cg_maxiter=200),
+    dict(cg_maxiter=200, cg_tol=1e-14), dict(zero_tol=1e-10, refine_steps=2),
+], ids=["maxiter0", "maxiter1_tol1e-14", "maxiter200", "maxiter200_tol1e-14", "zero_tol_refine"])
+def test_cg_arguments_match_reference(kw):
+    """The starved and the converging system of tests/test_round2_fixes.py
+    through both packages' solvers built with the same arguments: statuses
+    equal, the port's CG iterations the JAX solver's, the arguments stored
+    as the JAX solver stores them (``refine_steps`` None reads 0)."""
+    system = _local_system(q_scale=1000.0, N=3, nk=12, L=6, seed=3)
+    (j_status, j_cg), t_status, solver, _, _ = _both(system, jax_cg=True, **kw)
+    print(f"{kw}: status JAX {j_status} port {t_status}, CG iterations JAX {j_cg} port "
+          f"{solver.cg_iterations}")
+    assert j_status == t_status
+    assert solver.cg_iterations == [j_cg]
+    jsolver = pt.PCGSchurComplementSolver(block_size=8, **kw)
+    for name in ("zero_tol", "cg_tol", "cg_maxiter", "refine_steps"):
+        assert getattr(solver, name) == getattr(jsolver, name), name
+
+
 @pytest.mark.parametrize("driver", DRIVERS)
-def test_failed_cg_stops_the_drivers(monkeypatch, driver):
-    """No CG iteration allowed: every back solve fails with status error.
-    ``ip_solve`` raises; the fused driver returns status error and the
-    incoming state, not a NaN-poisoned one."""
-    monkeypatch.setattr(pcg_schur, "CG_MAXITER", 0)
+def test_failed_cg_stops_the_drivers(driver):
+    """No CG iteration allowed (``cg_maxiter=0``): every back solve fails
+    with status error.  ``ip_solve`` raises; the fused driver returns status
+    error and the incoming state, not a NaN-poisoned one."""
     iface = ptt.DynamicSchurComplementInteriorPointInterface(
         burgers.build_spec(nfe_x=4, nfe_t=4, num_time_blocks=2, device="cpu")
     )
     opts = ptt.IPOptions()
-    opts.linalg.solver = ptt.PCGSchurComplementSolver(block_size=16)
+    opts.linalg.solver = ptt.PCGSchurComplementSolver(block_size=16, cg_maxiter=0)
     if driver == "ip_solve":
         with pytest.raises(RuntimeError, match="back solve failed"):
             ptt.ip_solve(iface, opts)

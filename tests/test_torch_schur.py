@@ -323,3 +323,113 @@ def test_scatter_sites_match_reference_in_fixed_order(N, L, nc):
             for j in range(L):
                 loop[row_idx[b, i], row_idx[b, j]] += S[b, i, j]
     assert np.array_equal(sc, loop[:nc, :nc])
+
+
+def _jax_passes(solver, fact, rhs):
+    """(x, status, refinement passes) of the JAX solver's
+    ``solve_with_status`` run eagerly (``jax.disable_jit``: its
+    ``lax.while_loop`` and ``lax.cond`` run as host loops), the passes
+    counted from its ``_solve_once`` calls."""
+    calls = [0]
+    once = solver._solve_once
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return once(*a, **k)
+
+    solver._solve_once = counted
+    try:
+        with jax.disable_jit():
+            x, status = solver.solve_with_status(fact, rhs)
+    finally:
+        del solver._solve_once
+    return x, int(status), calls[0] - 1
+
+
+def _conditioned_system(cond, seed=21):
+    """make_system's borders and Q around SPD blocks with eigenvalues
+    logspaced from 1 to ``cond`` (4 blocks of 12)."""
+    diag, border, q = make_system(4, 12, 5, seed=seed)
+    rng = np.random.default_rng(2)
+    for i in range(4):
+        U, _ = np.linalg.qr(rng.standard_normal((12, 12)))
+        diag[i] = U @ np.diag(np.logspace(0, np.log10(cond), 12)) @ U.T
+    return diag, border, q
+
+
+# the JAX factor of each conditioned system, shared by its cases
+_REFINE_FACTORS = {}
+
+
+@pytest.mark.parametrize("cond, trigger, max_passes", [(1e4, 1e-3, 2), (1e4, 1e-5, 8)])
+def test_refine_trigger_and_max_passes_match_reference(cond, trigger, max_passes):
+    """``refine_trigger`` / ``refine_max_passes`` at user values, on bf16-stored
+    W without the auto-gate (where the adaptive refinement runs passes):
+    the port's passes (its back solves less one) and status equal to the
+    JAX solver's; where both converged the solutions within 1e-5 x max|x|
+    of each other (tests/test_explicit_inverse.py's bf16 bound).  On these
+    1e4-conditioned blocks two passes do not reach a trigger of 1e-3: both
+    stop at the cap with status error; under 1e-5 and the default cap both
+    converge after the same passes."""
+    diag, border, q = _conditioned_system(cond)
+    M = dense_assemble(diag, border, q)
+    x_true = np.random.default_rng(1).standard_normal(M.shape[0])
+    rhs = M @ x_true
+    kw = dict(block_size=8, explicit_inverse=True, w_auto_gate=False, refine_trigger=trigger,
+              refine_max_passes=max_passes)
+    jsol = pt.SchurComplementSolver(factor_dtype=jnp.float32, w_store_dtype=jnp.bfloat16, **kw)
+    tsol = ptt.SchurComplementSolver(factor_dtype=torch.float32, w_store_dtype=torch.bfloat16, **kw)
+    kkt = JBlockKKT.make(jnp.asarray(diag), jnp.asarray(border), jnp.asarray(q))
+    jrhs = JBlockRhs(blocks=jnp.asarray(rhs[:48].reshape(4, 12)), coupling=jnp.asarray(rhs[48:]))
+    if cond not in _REFINE_FACTORS:  # the refinement arguments leave the numeric alone
+        _REFINE_FACTORS[cond] = jax.jit(jsol.numeric)(kkt)
+    jx, j_status, j_passes = _jax_passes(jsol, _REFINE_FACTORS[cond], jrhs)
+    tf = tsol.numeric(block_kkt_from_numpy(_np(kkt), "cpu"))
+    tx, t_status = tsol.solve_with_status(tf, block_rhs_from_numpy(_np(jrhs), "cpu"))
+    t_passes = tsol.n_solves - 1
+    flat = lambda b: np.concatenate([np.asarray(b.blocks).reshape(-1), np.asarray(b.coupling)])
+    d = np.abs(flat(jx) - flat(tx)).max()
+    print(f"cond {cond:g} trigger {trigger:g} max {max_passes}: passes JAX {j_passes} port "
+          f"{t_passes}, status JAX {j_status} port {int(t_status)}, max|dx| {d:.3e}")
+    assert (tsol.refine_trigger, tsol.refine_max_passes) == (trigger, max_passes)
+    assert t_passes == j_passes and int(t_status) == j_status
+    assert 0 < t_passes <= max_passes
+    if j_status == 0:
+        assert d <= 1e-5 * np.abs(x_true).max()
+    else:
+        assert t_passes == max_passes
+
+
+def _planted_pivot_system(tiny=1e-12):
+    """make_system with block 0's first two rows and columns replaced by
+    the decoupled pair [[1, 1], [1, 1 + tiny]], outside the border: its
+    second pivot is ~tiny (equilibration leaves it so: both rows already
+    have unit maximum) and the Schur complement does not see it."""
+    diag, border, q = make_system(4, 12, 5, seed=6)
+    diag[0, :2, :] = 0.0
+    diag[0, :, :2] = 0.0
+    diag[0, :2, :2] = [[1.0, 1.0], [1.0, 1.0 + tiny]]
+    border[0, :, :2] = 0.0
+    return diag, border, q
+
+
+def test_zero_tol_counts_a_planted_pivot_as_reference():
+    """``zero_tol=1e-10`` on a KKT whose block 0 has a pivot of ~1e-12 (the
+    W form, whose equilibration leaves that pivot as it is):
+    inertia and status exactly the JAX solver's (one zero pivot, status
+    singular); at the default 0.0 the pivot counts as positive.  The
+    default coupling solver carries the same ``zero_tol``."""
+    diag, border, q = _planted_pivot_system()
+    kkt = JBlockKKT.make(jnp.asarray(diag), jnp.asarray(border), jnp.asarray(q))
+    tkkt = block_kkt_from_numpy(_np(kkt), "cpu")
+    jsol, tsol = _solvers("W", block_size=8, zero_tol=1e-10)
+    assert tsol.zero_tol == tsol.sc_solver.zero_tol == jsol.sc_solver.zero_tol == 1e-10
+    jf = jsol.numeric(kkt)
+    tf = tsol.numeric(tkkt)
+    assert (_inertia(tsol, tf), int(tsol.status(tf))) == (_inertia(jsol, jf), int(jsol.status(jf)))
+    assert _inertia(tsol, tf)[2] == 1 and int(tsol.status(tf)) == int(ptt.LinearSolverStatus.singular)
+    # the default counts the same pivot as positive
+    default = _solvers("W", block_size=8)[1]
+    f0 = default.numeric(tkkt)
+    assert _inertia(default, f0)[2] == 0 and int(default.status(f0)) == 0
+    assert _inertia(default, f0)[0] == _inertia(tsol, tf)[0] + 1

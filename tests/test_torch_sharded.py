@@ -60,6 +60,13 @@ Cases and their references (tolerances are the JAX package's own tests'):
   sharded solver (inertia equal, solutions within 1e-11);
 - the QP's accessors under its ownership map from one seeded state,
   bitwise equal to the JAX package's interface on P devices;
+- the restored solver arguments (``zero_tol``, ``refine_trigger``,
+  ``refine_max_passes``; banded ``refine_steps``, ``tile_block_size``)
+  through the sharded solvers against their serial twins (inertia and
+  status equal, passes equal, solutions 1e-11), and the examples' ``main``
+  with mesh= (Burgers against its replicated run, MESH_ATOL; dynamics and
+  the farmer on a 3-rank ``block_mesh(devices=...)`` at their golden
+  values);
 - every array a rank wrote, but the per-rank ones, is bitwise equal on all
   ranks.
 
@@ -101,6 +108,15 @@ MESH_ATOL = 1e-10
 SERIAL_RTOL = 1e-6
 # the serial solvers handed a mesh= interface's rank-local KKT (ROADMAP C11)
 SERIAL_SOLVERS = ("dense", "banded", "pcg")
+# burgers.main's size with mesh= (tests/test_torch_interior_point.py holds
+# its serial run to the JAX package's)
+EXAMPLE_BURGERS = dict(nfe_x=8, nfe_t=8, num_time_blocks=4)
+# the examples' golden values (tests/test_examples.py): dynamics p(t) within
+# 1e-6, the farmer's acreage within 1e-4
+DYNAMICS_GOLDEN_P = (1.6046242850486279, 2.0, 1.4792062911745605, 0.5082444341496647,
+                     -0.009859487375413882, 0.40043954978583834, 1.3619861771562247,
+                     1.99059057528143, 1.7102013685364827)
+FARMER_ACRES = (170.0, 80.0, 250.0)
 
 
 def make_system(N=4, nk=12, nc=5, seed=0):
@@ -233,12 +249,13 @@ def _count_blocks(iface) -> set:
 def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
     torch.set_num_threads(1)
     import parapint_tpu_torch as ptt
-    from parapint_tpu_torch.examples import burgers, stochastic
+    from parapint_tpu_torch.examples import burgers, dynamics, stochastic
     from parapint_tpu_torch.examples.performance import schur_complement as perf
     from parapint_tpu_torch.convert import ipstate_from_numpy
     from parapint_tpu_torch.linalg.banded_schur import BandedLocalBlockKKT
     from parapint_tpu_torch.linalg.schur import BlockKKT, BlockRhs, LocalBlockKKT, gather_kkt
     from parapint_tpu_torch.parallel import distributed
+    from parapint_tpu_torch.parallel.mesh import block_mesh
 
     import chip_smoke
     from parapint_tpu_torch.utils.timer import HierarchicalTimer
@@ -387,6 +404,55 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
             fact = solver.numeric(kkt)
             x, status = solver.solve_with_status(fact, rhs)
             keep(f"step/{form}/{kind}", x, fact, solver, status)
+
+    # the restored solver arguments at user values through the sharded
+    # solvers and their serial twins, on the same KKTs: the planted-pivot
+    # random system (zero_tol counts the pivot as zero) and the 8-block
+    # banded first KKT (fixed refinement passes, one panel per tile)
+    diag, border, q = make_system(8, 12, 5, seed=9)
+    diag[0, :2, :], diag[0, :, :2], border[0, :, :2] = 0.0, 0.0, 0.0
+    diag[0, :2, :2] = [[1.0, 1.0], [1.0, 1.0 + 1e-12]]
+    dense_args = dict(block_size=8, zero_tol=1e-10, explicit_inverse=True,
+                      refine_trigger=1e-3, refine_max_passes=2)
+    for kind, solver in (("serial", ptt.SchurComplementSolver(**dense_args)),
+                         ("sharded", ptt.ShardedSchurComplementSolver(mesh, "blocks", **dense_args))):
+        fact = solver.numeric(BlockKKT.make(t(diag), t(border), t(q)))
+        out[f"args/dense/{kind}/inertia"] = np.array([int(v) for v in solver.inertia(fact)])
+        out[f"args/dense/{kind}/status"] = np.array(int(solver.status(fact)))
+        out[f"args/dense/{kind}/kept"] = np.array([
+            solver.zero_tol, solver.sc_solver.zero_tol, solver.refine_trigger,
+            solver.refine_max_passes])
+    g = lambda name: t(inputs[f"banded8/{name}"])
+    kkt = BandedLocalBlockKKT(
+        sym_bands=g("sym_bands"), border_loc=g("border_loc"), row_idx=g("row_idx"), q=g("q"),
+        mask=g("mask"), perm=g("perm"), iperm=g("iperm"), assembly=str(inputs["banded8/assembly"]),
+    )
+    rhs = BlockRhs(g("rhs_blocks"), g("rhs_coupling"))
+    banded_args = dict(refine_steps=2, tile_block_size=128)
+    for kind, solver in (("serial", ptt.BandedSchurComplementSolver(**banded_args)),
+                         ("sharded", ptt.ShardedBandedSchurComplementSolver(mesh, **banded_args))):
+        calls = []
+        once = solver._solve_once
+        solver._solve_once = lambda *a: calls.append(1) or once(*a)
+        fact = solver.numeric(kkt)
+        x, status = solver.solve_with_status(fact, rhs)
+        keep(f"args/banded/{kind}", x, fact, solver, status)
+        out[f"args/banded/{kind}/passes"] = np.array(len(calls) - 1)
+
+    # the examples' main with mesh=: Burgers over the whole mesh, the
+    # 3-block dynamics example and the 3-scenario farmer over the mesh of
+    # the first three ranks in reverse order (block_mesh's devices=), and
+    # Burgers without a mesh (the replicated run the mesh= one equals)
+    out["mesh3/ranks"] = np.array(block_mesh(devices=[1, 0]).mesh.tolist())
+    mesh3 = block_mesh(devices=list(range(min(world, 3)))[::-1])
+    for use in ("mesh", "serial"):
+        iface = burgers.main(**EXAMPLE_BURGERS, mesh=mesh if use == "mesh" else None, device="cpu")
+        out[f"main/burgers/{use}"] = iface.get_state().primals["blocks"].numpy()
+    out["rank/main/dynamics_p"] = out["rank/main/farmer"] = np.zeros(0)  # a rank outside mesh3
+    if mesh3.get_coordinate() is not None:
+        _, _, p = dynamics.main(mesh=mesh3, device="cpu")
+        out["rank/main/dynamics_p"] = p
+        out["rank/main/farmer"] = stochastic.main(mesh=mesh3, device="cpu").get_first_stage_values().numpy()
 
     # the stochastic QP with a non-trivial ownership map
     own = OWNERSHIP[world]
@@ -1004,6 +1070,52 @@ def test_mesh_interface_matches_jax(sharded, case):
     _close(out[f"mesh/{case}/x"], out[f"fused/{case}/x"], MESH_ATOL)
     _close(out[f"mesh/{case}/c"], out[f"fused/{case}/c"], MESH_ATOL)
     _own_blocks_only(ranks, f"mesh/{case}", CASES[case][1])
+
+
+def test_restored_arguments_on_the_sharded_solvers(sharded):
+    """The sharded solvers built with the restored arguments carry them, as
+    their serial twins do, and compute what the twins compute: on the
+    planted-pivot system ``zero_tol=1e-10`` counts one zero pivot (inertia
+    and status equal to the serial solver's, which tests/test_torch_schur.py
+    holds to the JAX package's); on the 8-block banded first KKT
+    ``refine_steps=2`` runs two passes and ``tile_block_size=128`` one panel
+    per tile, the solution within 1e-11 of the serial one."""
+    out = sharded[1][0]
+    for kind in ("serial", "sharded"):
+        np.testing.assert_array_equal(out[f"args/dense/{kind}/kept"], [1e-10, 1e-10, 1e-3, 2])
+        assert int(out[f"args/banded/{kind}/passes"]) == 2
+        assert int(out[f"args/banded/{kind}/status"]) == 0
+    np.testing.assert_array_equal(out["args/dense/sharded/inertia"], out["args/dense/serial/inertia"])
+    assert out["args/dense/sharded/inertia"][2] == 1
+    assert int(out["args/dense/sharded/status"]) == int(out["args/dense/serial/status"]) == 2
+    np.testing.assert_array_equal(out["args/banded/sharded/inertia"], out["args/banded/serial/inertia"])
+    _close(out["args/banded/sharded/xb"], out["args/banded/serial/xb"], 1e-11)
+    _close(out["args/banded/sharded/xc"], out["args/banded/serial/xc"], 1e-11)
+
+
+def test_examples_main_with_a_mesh(sharded):
+    """``burgers.main``, ``dynamics.main`` and the farmer's ``main`` with
+    mesh= (their interfaces built with it, their default serial solvers
+    gathering the rank-local KKT): Burgers equal to its replicated run
+    within MESH_ATOL, dynamics' p(t) and the farmer's acreage at the
+    reference's golden values on every rank of the 3-rank mesh (block_mesh's
+    ``devices=`` in reverse order, the ranks in the order the JAX
+    package's ``block_mesh(devices=...)`` keeps its devices)."""
+    import jax
+
+    from parapint_tpu.parallel.mesh import block_mesh as j_block_mesh
+
+    P, ranks, _, _ = sharded
+    _jax_mesh(2)
+    jm = j_block_mesh(devices=jax.devices()[:2][::-1])
+    for out in ranks:
+        np.testing.assert_array_equal(out["mesh3/ranks"], [d.id for d in jm.devices.flat])
+        _close(out["main/burgers/mesh"], out["main/burgers/serial"], MESH_ATOL)
+    for out in ranks[3:]:
+        assert out["rank/main/dynamics_p"].size == out["rank/main/farmer"].size == 0
+    for out in ranks[:3]:
+        np.testing.assert_allclose(out["rank/main/dynamics_p"][:9], DYNAMICS_GOLDEN_P, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(out["rank/main/farmer"], FARMER_ACRES, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("case", ["ip_solve", "pcg", "two_kinds", "qp"])

@@ -7,6 +7,7 @@ tests/test_tridiag.py), 1e-10 relative between the two packages (same
 float64 algorithm, different summation order); inertia exact.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -109,3 +110,65 @@ def test_cr_float32_tiles_through_panel_wrapper():
     x = solver.solve(fact, torch.as_tensor(r, dtype=torch.float32)).double().numpy()
     x_true = np.linalg.solve(S, r)
     assert np.abs(x - x_true).max() < 1e-3 * np.abs(x_true).max()
+
+
+def test_cr_arguments_match_reference():
+    """``BlockTridiagSolver(ns, block_size=32, zero_tol=1e-10,
+    factor_dtype=float32)`` on float64 tiles of the flagship's width (49),
+    both packages built alike: inertia and status exactly equal, every
+    level's tile inverses of the same shape and in the tiles' dtype, the
+    solutions within 1e-3 x max|x| (test_cr_float32_tiles_through_panel_wrapper's
+    float32 bar)."""
+    m, ns = 3, 49
+    diag, upper = make_tridiag(m, ns, seed=5)
+    r = np.random.default_rng(6).standard_normal(m * ns)
+    kw = dict(ns=ns, block_size=32, zero_tol=1e-10)
+    jsolver = JBlockTridiagSolver(factor_dtype=jnp.float32, **kw)
+    tsolver = BlockTridiagSolver(factor_dtype=torch.float32, **kw)
+    for name in kw:
+        assert getattr(tsolver, name) == getattr(jsolver, name)
+    jtri = JBlockTridiag(jnp.asarray(diag), jnp.asarray(upper))
+    jfact = jax.jit(jsolver.numeric)(jtri)
+    tfact = tsolver.numeric(BlockTridiag(torch.as_tensor(diag), torch.as_tensor(upper)))
+    inertia = tuple(int(v) for v in tsolver.inertia(tfact))
+    assert inertia == tuple(int(v) for v in jsolver.inertia(jfact))
+    assert int(tsolver.status(tfact)) == int(jsolver.status(jfact)) == 0
+    for jt, tt in zip(jfact.tinv, tfact.tinv, strict=True):
+        assert tuple(tt.shape) == tuple(jt.shape) and tt.dtype == torch.float64
+    x = tsolver.solve(tfact, torch.as_tensor(r)).numpy()
+    x_ref = np.asarray(jax.jit(jsolver.solve)(jfact, jnp.asarray(r)))
+    assert np.abs(x - x_ref).max() <= 1e-3 * np.abs(x_ref).max()
+
+
+@pytest.mark.parametrize("ns, block_size, panels", [(49, 128, 1), (49, 32, 2), (199, 128, 2)])
+def test_cr_panel_widths_match_reference(monkeypatch, ns, block_size, panels):
+    """The float32 level factorizations at a caller's ``block_size``: the
+    padded W, pivots and scaling of the JAX package's level factor
+    (``jax.eval_shape``, the same widths as its computation), and the
+    panels the port hands the slab kernel's entry: 49-wide tiles pad to one
+    56-wide panel at 128 (as at the default 64), two 32-wide at 32; 199-wide
+    tiles to two 128-wide panels at 128 (four 64-wide at the default)."""
+    from parapint_tpu.linalg.schur import _factor_blocks_winv as j_factor
+    from parapint_tpu_torch.ops import ldl as tldl
+
+    widths = []
+    entry = tldl.ldl_panels_slab_winv
+
+    def spy(panel):
+        widths.append(panel.shape[-1])
+        return entry(panel)
+
+    monkeypatch.setattr(tldl, "ldl_panels_slab_winv", spy)
+    diag, upper = make_tridiag(3, ns, seed=7)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    BlockTridiagSolver(block_size=block_size).numeric(BlockTridiag(f32(diag), f32(upper)))
+    level_widths = list(widths)
+    js = jax.eval_shape(lambda d, k: j_factor(d, k, block_size, 0.0),
+                        jax.ShapeDtypeStruct((2, ns, ns), jnp.float32),
+                        jax.ShapeDtypeStruct((2,), jnp.float32))
+    from parapint_tpu_torch.linalg.schur import _factor_blocks_winv as t_factor
+    ts = t_factor(f32(diag[:2]), torch.ones(2), block_size, 0.0)
+    assert [tuple(t.shape) for t in ts[:3]] == [tuple(j.shape) for j in js[:3]]
+    npad = js[0].shape[-1]
+    # two levels (3 tiles -> E = 2, then 1), each its panels
+    assert level_widths == [npad // panels] * (2 * panels)
