@@ -2027,12 +2027,16 @@ def _launches(fn):
     ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
+    from parapint_tpu_torch.utils.profile import SPAN_PREFIXES
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     ka = prof.key_averages()
+    # the program's spans also appear as device-side ranges: not kernels
     dev = sum(e.self_device_time_total for e in ka
-              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith(SPAN_PREFIXES)) / 1e3
     return out, sum(e.count for e in ka if e.key in LAUNCH_CALLS), dev
 
 

@@ -5,8 +5,11 @@ Same algorithm and semantics as the JAX package's fused solve (reference
 parapint/algorithms/interior_point.py:405-631): barrier update, inertia
 correction, convergence tests.  Torch has no ``lax.while_loop``/``lax.cond``,
 so the outer loop, the inertia-correction retry loop and the converged
-branch run in Python; each decision reads one device flag with ``.item()``
-and every iterate, residual and step stays on the device.
+branch run in Python; each decision reads one device flag
+(``utils/profile.py::host_read``) and every iterate, residual and step stays
+on the device.  The loop's spans are ``ip.solve``, ``ip.iteration``,
+``ip.inertia_correction`` and ``ip.line_search``; each interface call carries
+its own ``iface.*`` span.
 
 Differences from the Python-loop ``ip_solve`` of the JAX package (as in its
 fused solve): no per-iteration log table, and a failure to factorize or to
@@ -25,6 +28,7 @@ from parapint_tpu_torch.algorithms.interior_point import (
 )
 from parapint_tpu_torch.linalg.results import LinearSolverStatus
 from parapint_tpu_torch.options import IPOptions
+from parapint_tpu_torch.utils.profile import host_read, host_sync, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,12 +78,13 @@ def make_fused_ip_solve(interface, options: Optional[IPOptions] = None):
         if not use_ic:
             return fact, ok, 0.0
         w_cum, coef, used = 0.0, inertia_coef, 0.0
-        while used <= ic.max_coef and not bool(ok.item()):
-            w_cum += coef
-            fact = solver.numeric(interface.assemble_kkt(data, w_cum, coef))
-            ok = is_ok(fact)
-            used = coef
-            coef *= ic.factor_increase
+        while used <= ic.max_coef and not bool(host_read(ok)):
+            with span("ip.inertia_correction"):
+                w_cum += coef
+                fact = solver.numeric(interface.assemble_kkt(data, w_cum, coef))
+                ok = is_ok(fact)
+                used = coef
+                coef *= ic.factor_increase
         return fact, ok, used
 
     # IPOPT-style filter line search (Waechter & Biegler): the filter is a
@@ -105,7 +110,7 @@ def make_fused_ip_solve(interface, options: Optional[IPOptions] = None):
         alpha, found = 1.0, False
         for _ in range(max(1, ls.max_iter)):
             trial = interface.apply_step(state, deltas, a_p, a_d, alpha)
-            if bool(acceptable(*interface.merit_components(trial, mu)).item()):
+            if bool(host_read(acceptable(*interface.merit_components(trial, mu)))):
                 found = True
                 break
             alpha *= 0.5
@@ -136,9 +141,14 @@ def make_fused_ip_solve(interface, options: Optional[IPOptions] = None):
         return torch.where((info.compl_count > 0) & (avg > 0.0), mu_adaptive, mu_monotone)
 
     def solve(state0) -> FusedResult:
+        with span("ip.solve"):
+            return _solve(state0)
+
+    def _solve(state0) -> FusedResult:
         device = interface.device
         state = state0
-        mu = torch.tensor(options.init_barrier_parameter, dtype=torch.float64, device=device)
+        with host_sync():  # a copy from pageable host memory
+            mu = torch.tensor(options.init_barrier_parameter, dtype=torch.float64, device=device)
         inertia_coef = ic.init_coef
         status = InteriorPointStatus.error
         zero = torch.zeros((), dtype=torch.float64, device=device)
@@ -149,32 +159,36 @@ def make_fused_ip_solve(interface, options: Optional[IPOptions] = None):
             filt = [far, far.clone(), 0]
         it = 0
         while it < options.max_iter:
-            ad = interface.eval_ad(state)
-            info = interface.convergence_from_ad(state, ad, mu, error_scaling)
-            diags = (info.primal_inf, info.dual_inf, info.compl_inf_0)
-            err0 = torch.maximum(info.primal_inf, torch.maximum(info.dual_inf, info.compl_inf_0))
-            mu = next_barrier(info, mu)
-            it += 1
-            if bool((err0 <= tol).item()):
-                status = InteriorPointStatus.optimal
-                break
-            data = interface.kkt_from_ad(state, ad, mu)
-            fact, ok, used = factor_with_inertia_correction(data, inertia_coef)
-            sol, solve_status = solver.solve_with_status(fact, interface.kkt_rhs(data))
-            ok = ok & (solve_status <= int(LinearSolverStatus.warning))
-            deltas = interface.extract_deltas(state, sol, mu)
-            a_p, a_d = interface.fraction_to_the_boundary(state, deltas, 1.0 - mu)
-            if not bool(ok.item()):
-                # keep the incoming iterate: the error result carries the
-                # last valid point
-                break
-            alpha = 1.0
-            if do_ls:
-                alpha, ls_ok, filt = filter_line_search(state, deltas, a_p, a_d, mu, filt)
-                if not ls_ok:
+            with span("ip.iteration"):
+                ad = interface.eval_ad(state)
+                info = interface.convergence_from_ad(state, ad, mu, error_scaling)
+                diags = (info.primal_inf, info.dual_inf, info.compl_inf_0)
+                err0 = torch.maximum(
+                    info.primal_inf, torch.maximum(info.dual_inf, info.compl_inf_0)
+                )
+                mu = next_barrier(info, mu)
+                it += 1
+                if bool(host_read(err0 <= tol)):
+                    status = InteriorPointStatus.optimal
                     break
-            state = interface.apply_step(state, deltas, a_p, a_d, alpha)
-            inertia_coef = max(ic.init_coef, used * ic.factor_decrease)
+                data = interface.kkt_from_ad(state, ad, mu)
+                fact, ok, used = factor_with_inertia_correction(data, inertia_coef)
+                sol, solve_status = solver.solve_with_status(fact, interface.kkt_rhs(data))
+                ok = ok & (solve_status <= int(LinearSolverStatus.warning))
+                deltas = interface.extract_deltas(state, sol, mu)
+                a_p, a_d = interface.fraction_to_the_boundary(state, deltas, 1.0 - mu)
+                if not bool(host_read(ok)):
+                    # keep the incoming iterate: the error result carries the
+                    # last valid point
+                    break
+                alpha = 1.0
+                if do_ls:
+                    with span("ip.line_search"):
+                        alpha, ls_ok, filt = filter_line_search(state, deltas, a_p, a_d, mu, filt)
+                    if not ls_ok:
+                        break
+                state = interface.apply_step(state, deltas, a_p, a_d, alpha)
+                inertia_coef = max(ic.init_coef, used * ic.factor_decrease)
         return FusedResult(
             state=state,
             status=status.value,

@@ -16,6 +16,8 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
+from parapint_tpu_torch.utils.profile import host_sync
+
 
 @dataclasses.dataclass(frozen=True)
 class IPState:
@@ -153,10 +155,20 @@ def process_init_duals_ub(z: torch.Tensor, ub: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isposinf(ub), 0.0, z)
 
 
+def _on_host(a) -> np.ndarray:
+    """``a`` as a numpy array; reading a device tensor that holds data waits
+    for the device."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    if not a.numel():
+        return a.cpu().numpy()
+    with host_sync():
+        return a.cpu().numpy()
+
+
 def validate_bounds(lb, ub) -> None:
     """Host-side check (reference interior_point.py:762-767)."""
-    lb = lb.cpu().numpy() if isinstance(lb, torch.Tensor) else np.asarray(lb)
-    ub = ub.cpu().numpy() if isinstance(ub, torch.Tensor) else np.asarray(ub)
+    lb, ub = _on_host(lb), _on_host(ub)
     if np.any((ub - lb) < 0):
         raise ValueError(
             "Lower bounds for variables/inequalities should not be larger "

@@ -15,6 +15,9 @@ Lagrangian (``hess_lag``, forward-over-reverse) and the constraint Jacobians
 Hessians or Jacobians: it uses the probe closures ``hvp_lag``, ``jvp_eq``,
 ``vjp_eq``, ``jvp_ineq`` and ``vjp_ineq``, each batched over blocks AND over
 a shared set of probe vectors.
+
+Each batched closure carries a span named ``ad.<closure>``
+(``utils/profile.py``).
 """
 
 import dataclasses
@@ -23,6 +26,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 from torch.func import grad, jacfwd, jacrev, jvp, vjp, vmap
+
+from parapint_tpu_torch.utils.profile import host_sync, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,10 +85,10 @@ class BatchedNLPFunctions:
 
         self._f, self._ceq, self._cineq, self._lag = _f, _ceq, _cineq, _lag
 
-        self.f = vmap(_f)
-        self.grad_f = vmap(grad(_f))
-        self.c_eq = vmap(_ceq)
-        self.c_ineq = vmap(_cineq)
+        self.f = spanned("ad.f")(vmap(_f))
+        self.grad_f = spanned("ad.grad_f")(vmap(grad(_f)))
+        self.c_eq = spanned("ad.c_eq")(vmap(_ceq))
+        self.c_ineq = spanned("ad.c_ineq")(vmap(_cineq))
 
         # materialized derivatives (dense block form).  Model functions may
         # mix dtypes internally (f64 constants under a float32 KKT): outputs
@@ -95,14 +100,14 @@ class BatchedNLPFunctions:
             mode = jacfwd if n_x <= max(m, 1) else jacrev
             return mode(lambda x, p, xm, mk: fn(x, p, xm, mk).to(x.dtype))
 
-        self.jac_eq = vmap(_jac(_ceq, n_eq))
-        self.jac_ineq = vmap(_jac(_cineq, n_ineq))
+        self.jac_eq = spanned("ad.jac_eq")(vmap(_jac(_ceq, n_eq)))
+        self.jac_ineq = spanned("ad.jac_ineq")(vmap(_jac(_cineq, n_ineq)))
 
         def _grad_lag(x, y_eq, y_ineq, obj_factor, p, xm, em, im):
             lag = lambda xq: _lag(xq, y_eq, y_ineq, obj_factor, p, xm, em, im).to(xq.dtype)
             return grad(lag)(x).to(x.dtype)
 
-        self.hess_lag = vmap(jacfwd(_grad_lag))
+        self.hess_lag = spanned("ad.hess_lag")(vmap(jacfwd(_grad_lag)))
 
         # model functions may mix dtypes internally (f64 constants under a
         # float32 KKT); every probed closure's output is pinned to x's dtype
@@ -134,11 +139,11 @@ class BatchedNLPFunctions:
                 return x.new_zeros(n_x)
             return vjp(lambda xx: _cineq(xx, p, xm, im).to(x.dtype), x)[1](w)[0]
 
-        self.hvp_lag = _probe(_hvp, 8)
-        self.jvp_eq = _probe(_jvp_eq, 4)
-        self.vjp_eq = _probe(_vjp_eq, 4)
-        self.jvp_ineq = _probe(_jvp_ineq, 4)
-        self.vjp_ineq = _probe(_vjp_ineq, 4)
+        self.hvp_lag = spanned("ad.hvp_lag")(_probe(_hvp, 8))
+        self.jvp_eq = spanned("ad.jvp_eq")(_probe(_jvp_eq, 4))
+        self.vjp_eq = spanned("ad.vjp_eq")(_probe(_vjp_eq, 4))
+        self.jvp_ineq = spanned("ad.jvp_ineq")(_probe(_jvp_ineq, 4))
+        self.vjp_ineq = spanned("ad.vjp_ineq")(_probe(_vjp_ineq, 4))
 
         def _jtprod(x, y_eq, y_ineq, p, xm, em, im):
             """J_eq^T y_eq + J_ineq^T y_ineq via ONE reverse sweep."""
@@ -153,7 +158,7 @@ class BatchedNLPFunctions:
 
             return grad(val)(x)
 
-        self.jtprod = vmap(_jtprod)
+        self.jtprod = spanned("ad.jtprod")(vmap(_jtprod))
 
 
 def sub_kkt_layout(n: int, me: int, mi: int, n_link: int):
@@ -203,8 +208,10 @@ def assemble_block_diag(
     mi = data.jac_ineq.shape[1]
     n_link = link_rows.shape[1]
     dt, dev = data.hess.dtype, data.hess.device
-    w_reg = torch.as_tensor(w_reg, dtype=dt, device=dev)
-    c_reg = torch.as_tensor(c_reg, dtype=dt, device=dev)
+    with host_sync():  # copies from pageable host memory, one sync each
+        w_reg = torch.as_tensor(w_reg, dtype=dt, device=dev)
+    with host_sync():
+        c_reg = torch.as_tensor(c_reg, dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
     dg = torch.diag_embed
     z = lambda r, c: torch.zeros((N, r, c), dtype=dt, device=dev)

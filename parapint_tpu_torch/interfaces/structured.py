@@ -66,6 +66,7 @@ from parapint_tpu_torch.linalg.banded_schur import BandedLocalBlockKKT
 from parapint_tpu_torch.linalg.schur import BlockRhs, LocalBlockKKT
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_rows
 from parapint_tpu_torch.parallel.mesh import BlockAxis
+from parapint_tpu_torch.utils.profile import host_sync, span, spanned
 
 F64 = torch.float64
 
@@ -310,8 +311,9 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         Y = torch.cat([out_x, out_s, out_yeq, out_yineq, out_lam], dim=2)
         # permute ROWS (K v is a row-space vector), then extract bands:
         # bands0[b, e, i] = Kp[i+e, i] = Yp[b, i % q, i + e]
-        Yp = Y[:, :, self._b_perm]
-        return Yp[:, self._b_col_idx, self._b_row_idx] * self._b_valid
+        with span("iface.band_extract"):
+            Yp = Y[:, :, self._b_perm]
+            return Yp[:, self._b_col_idx, self._b_row_idx] * self._b_valid
 
     # -- accessors -------------------------------------------------------------
 
@@ -416,6 +418,7 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
 
     # -- initial state ---------------------------------------------------------
 
+    @spanned("iface.init_state")
     def init_state(self) -> IPState:
         b = self.bounds
         base.validate_bounds(b.xl["blocks"], b.xu["blocks"])
@@ -559,6 +562,7 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         args = (cast(x), params, v.x_mask)
         return v.fns.jac_eq(*args, v.eq_mask), v.fns.jac_ineq(*args, v.ineq_mask)
 
+    @spanned("iface.eval_ad")
     def eval_ad(self, state):
         """One AD sweep per iteration: every derivative quantity that both
         the convergence check and the KKT assembly need.  Banded mode
@@ -589,6 +593,7 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         out.update(obj=f.sum(), grad_f=grad_f, c_eq=c_eq, c_ineq=c_ineq, jtlam=jtlam)
         return out
 
+    @spanned("iface.convergence_from_ad")
     def convergence_from_ad(self, state, ad, barrier, error_scaling):
         return self._convergence_core(
             state, self.bounds, ad["obj"], ad["grad_f"], ad["jtlam"],
@@ -596,6 +601,7 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
             jac_eq=ad["jac_eq"], jac_ineq=ad["jac_ineq"],
         )
 
+    @spanned("iface.kkt_from_ad")
     def kkt_from_ad(self, state, ad, barrier):
         return self._kkt_core(state, self.bounds, ad, barrier)
 
@@ -661,6 +667,7 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
 
     # -- line-search merit ---------------------------------------------------------
 
+    @spanned("iface.merit_components")
     def merit_components(self, state, barrier):
         """(theta, phi) for a filter line search: theta = 1-norm of all
         constraint residuals, phi = barrier objective.  Values only."""
@@ -697,12 +704,13 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         c = state.primals["coupling"]
         s = state.slacks
         xl, xu = bounds.xl["blocks"], bounds.xu["blocks"]
-        sigma_x = base.barrier_hessian_diag(
-            x, xl, xu, state.duals_primals_lb["blocks"], state.duals_primals_ub["blocks"]
-        )
-        sigma_s = base.barrier_hessian_diag(
-            s, bounds.gl, bounds.gu, state.duals_slacks_lb, state.duals_slacks_ub
-        )
+        with span("iface.barrier_diag"):
+            sigma_x = base.barrier_hessian_diag(
+                x, xl, xu, state.duals_primals_lb["blocks"], state.duals_primals_ub["blocks"]
+            )
+            sigma_s = base.barrier_hessian_diag(
+                s, bounds.gl, bounds.gu, state.duals_slacks_lb, state.duals_slacks_ub
+            )
         own = self._own
         if self.block_form == "banded":
             data = self._banded_bands0(*self._own_iterate(state), own(sigma_x), own(sigma_s))
@@ -716,20 +724,27 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
                 sigma_x=mcast(own(sigma_x)),
                 sigma_s=mcast(own(sigma_s)),
             )
-        c_eq, c_ineq = ad["c_eq"], ad["c_ineq"]
-        rhs_x = -(
-            self._grad_lag_primals(state, ad["grad_f"], ad["jtlam"], ad["jac_eq"], ad["jac_ineq"])
-            + base.barrier_grad_term(x, xl, xu, barrier)
-        )
-        rhs_s = -(-state.duals_ineq + base.barrier_grad_term(s, bounds.gl, bounds.gu, barrier))
-        rhs_blocks = torch.cat(
-            [rhs_x, rhs_s, -c_eq, -(c_ineq - s), -self._link_resid(x, c)], dim=1
-        )
-        rhs = BlockRhs(
-            blocks=own(rhs_blocks), coupling=self._scatter_link_duals_to_coupling(state.duals_eq)
-        )
+        with span("iface.rhs"):
+            c_eq, c_ineq = ad["c_eq"], ad["c_ineq"]
+            rhs_x = -(
+                self._grad_lag_primals(
+                    state, ad["grad_f"], ad["jtlam"], ad["jac_eq"], ad["jac_ineq"]
+                )
+                + base.barrier_grad_term(x, xl, xu, barrier)
+            )
+            rhs_s = -(
+                -state.duals_ineq + base.barrier_grad_term(s, bounds.gl, bounds.gu, barrier)
+            )
+            rhs_blocks = torch.cat(
+                [rhs_x, rhs_s, -c_eq, -(c_ineq - s), -self._link_resid(x, c)], dim=1
+            )
+            rhs = BlockRhs(
+                blocks=own(rhs_blocks),
+                coupling=self._scatter_link_duals_to_coupling(state.duals_eq),
+            )
         return data, rhs
 
+    @spanned("iface.assemble_kkt")
     def assemble_kkt(self, data_and_rhs, w_reg, c_reg):
         """KKT with regularization: ``w_reg`` adds to the real x-variable
         diagonals, ``c_reg`` sets the real constraint diagonals to -c_reg,
@@ -746,7 +761,8 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
                 data, v.eq_mask, v.ineq_mask, v.x_mask, v.link_rows, v.link_mask, w_reg, c_reg,
             )
             dt = diag.dtype
-            c_reg = torch.as_tensor(c_reg, dtype=dt, device=diag.device)
+            with host_sync():  # a copy from pageable host memory
+                c_reg = torch.as_tensor(c_reg, dtype=dt, device=diag.device)
             return LocalBlockKKT.make(
                 diag=diag,
                 border_loc=v.border,
@@ -756,8 +772,10 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
                 **part,
             )
         dt = data.dtype
-        w_reg = torch.as_tensor(w_reg, dtype=dt, device=data.device)
-        c_reg = torch.as_tensor(c_reg, dtype=dt, device=data.device)
+        with host_sync():  # copies from pageable host memory, one sync each
+            w_reg = torch.as_tensor(w_reg, dtype=dt, device=data.device)
+        with host_sync():
+            c_reg = torch.as_tensor(c_reg, dtype=dt, device=data.device)
         bands = data.clone()
         bands[:, 0, :] += w_reg * v.w_mask.to(dt) - c_reg * v.c_mask.to(dt)
         return BandedLocalBlockKKT(
@@ -772,11 +790,13 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
             **part,
         )
 
+    @spanned("iface.kkt_rhs")
     def kkt_rhs(self, data_and_rhs) -> BlockRhs:
         return data_and_rhs[1]
 
     # -- delta extraction ------------------------------------------------------------
 
+    @spanned("iface.extract_deltas")
     def extract_deltas(self, state, sol: BlockRhs, barrier) -> IPState:
         bounds = self.bounds
         n, me, mi = self.n, self.me, self.mi
@@ -809,6 +829,7 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
 
     # -- fraction to the boundary -----------------------------------------------------
 
+    @spanned("iface.fraction_to_the_boundary")
     def fraction_to_the_boundary(self, state, deltas, tau):
         bounds = self.bounds
         fl = lambda t: t.reshape(-1)
@@ -837,6 +858,7 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
 
     # -- step update -------------------------------------------------------------------
 
+    @spanned("iface.apply_step")
     def apply_step(self, state, deltas, alpha_primal, alpha_dual, alpha=1.0) -> IPState:
         ap = alpha * alpha_primal
         ad = alpha * alpha_dual

@@ -21,7 +21,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from parapint_tpu_torch.linalg.base import LinearSolver
 from parapint_tpu_torch.linalg.dense import DenseLDLSolver
@@ -46,6 +45,7 @@ from parapint_tpu_torch.linalg.schur import (
 from parapint_tpu_torch.linalg.tridiag import BlockTridiagSolver, _winv_to_inverse
 from parapint_tpu_torch.ops.banded import pad_sym_band, sym_band_to_tridiag_tiles
 from parapint_tpu_torch.parallel.mesh import BlockAxis, all_reduce_max, all_reduce_sum
+from parapint_tpu_torch.utils.profile import host_read, span, spanned
 
 @dataclasses.dataclass(frozen=True)
 class BandedLocalBlockKKT:
@@ -292,6 +292,7 @@ class BandedSchurComplementSolver(LinearSolver):
         ):
             raise ValueError(f"KKT on {dev}, solver built for {self.device}")
 
+    @spanned("banded_sc.numeric")
     def numeric(self, kkt: BandedLocalBlockKKT) -> BandedSchurFactor:
         self._check_device(kkt)
         self.n_numeric += 1
@@ -310,12 +311,12 @@ class BandedSchurComplementSolver(LinearSolver):
         A = kkt.border_loc[rows]
         row_idx = kkt.row_idx[rows]
         N, L = A.shape[:2]
-        with record_function("banded_sc.factor_blocks"):
+        with span("banded_sc.factor_blocks"):
             diag_t, upper_t, ts, nk_pad = banded_tiles(kkt.sym_bands[rows], self.tile_size)
             thomas = thomas_factor_batched(
                 diag_t, upper_t, mask, self.zero_tol, self.factor_dtype, self.tile_block_size
             )
-        with record_function("banded_sc.form_sc"):
+        with span("banded_sc.form_sc"):
             # V = K^{-1} A^T over the L border columns (multi-RHS sweep)
             At = A.transpose(1, 2).to(diag_t.dtype)  # (N, nk, L)
             if nk_pad != nk:
@@ -325,7 +326,7 @@ class BandedSchurComplementSolver(LinearSolver):
             S_loc = A.to(V.dtype) @ V
             S_loc = S_loc * mask[:, None, None].to(V.dtype)
         f32 = torch.float32
-        with record_function("banded_sc.communicate"):
+        with span("banded_sc.communicate"):
             q = kkt.q.to(V.dtype)
             if self._use_tridiag_sc(kkt):
                 dt_c, ut_full = _chain_tiles(S_loc, nc, lo)
@@ -346,7 +347,7 @@ class BandedSchurComplementSolver(LinearSolver):
                 self.group,
             )
             blk_status = all_reduce_max(thomas.status, self.group)
-        with record_function("banded_sc.factor_sc"):
+        with span("banded_sc.factor_sc"):
             sc_fact = self.sc_solver.numeric(sc)
         sc_pos, sc_neg, sc_zero = self.sc_solver.inertia(sc_fact)
         inertia = blk_inertia + torch.stack([sc_pos, sc_neg, sc_zero]).to(torch.int32)
@@ -386,6 +387,7 @@ class BandedSchurComplementSolver(LinearSolver):
         x = thomas_solve_batched(fact.thomas, bp.reshape(N, nk_pad // ts, ts))
         return x.reshape(N, nk_pad)[:, :nk]
 
+    @spanned("banded_sc.solve_once")
     def _solve_once(self, fact: BandedSchurFactor, rhs: BlockRhs) -> BlockRhs:
         """One SC solve in PERMUTED block coordinates."""
         chain = _chain_border_ok(fact.assembly, fact.border_loc, fact.nc)
@@ -435,6 +437,7 @@ class BandedSchurComplementSolver(LinearSolver):
         cy = cy + (q.to(cy.dtype) @ xc.to(cy.dtype))
         return BlockRhs(blocks=bx, coupling=cy)
 
+    @spanned("banded_sc.refine_probe")
     def _refine_probe(self, fact, rhs, x, trigger) -> torch.Tensor:
         """Device bool: does the f32 residual of ``x`` still exceed
         max(trigger * ||rhs||, noise floor)?  The floor is
@@ -487,15 +490,17 @@ class BandedSchurComplementSolver(LinearSolver):
             return x, torch.ones((), dtype=torch.bool, device=x.blocks.device)
         need = self._refine_probe(fact, rp, x, self.refine_trigger)
         passes = 0
-        while passes < self.refine_max_passes and bool(need.item()):
+        while passes < self.refine_max_passes and bool(host_read(need)):
             x = refine_pass(x)
             passes += 1
             need = self._refine_probe(fact, rp, x, self.refine_trigger)
         return x, ~need
 
+    @spanned("banded_sc.solve")
     def solve(self, fact: BandedSchurFactor, rhs: BlockRhs) -> BlockRhs:
         return self._solve_refined(fact, gather_rhs(fact, rhs))[0]
 
+    @spanned("banded_sc.solve")
     def solve_with_status(self, fact: BandedSchurFactor, rhs: BlockRhs):
         x, ok = self._solve_refined(fact, gather_rhs(fact, rhs))
         bad = torch.where(
@@ -554,6 +559,7 @@ class ShardedBandedSchurComplementSolver(BandedSchurComplementSolver):
         self.group = self.axis.group
         self.n_shards = self.axis.size
 
+    @spanned("banded_sc.numeric")
     def numeric(self, kkt: BandedLocalBlockKKT) -> BandedSchurFactor:
         self._check_device(kkt)
         self.n_numeric += 1
@@ -565,6 +571,6 @@ class ShardedBandedSchurComplementSolver(BandedSchurComplementSolver):
         n = fact.global_blocks if rank_local else rhs.blocks.shape[0]
         rp = self.axis.local_rows(rhs.blocks[:, fact.perm], nb, rank_local)
         x, ok = self._refine(fact, BlockRhs(blocks=rp, coupling=rhs.coupling))
-        with record_function("banded_sc.communicate"):
+        with span("banded_sc.communicate"):
             xb = self.axis.gather_blocks(x.blocks, nb)[:n]
         return BlockRhs(blocks=xb[:, fact.iperm], coupling=x.coupling), ok

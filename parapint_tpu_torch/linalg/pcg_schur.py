@@ -56,6 +56,7 @@ from parapint_tpu_torch.linalg.schur import (
 )
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_rows
 from parapint_tpu_torch.parallel.mesh import BlockAxis, all_reduce_max, all_reduce_sum
+from parapint_tpu_torch.utils.profile import host_read
 
 @dataclasses.dataclass(frozen=True)
 class PCGSchurFactor:
@@ -184,7 +185,7 @@ class PCGSchurComplementSolver(LinearSolver):
         rz = torch.dot(r, p)
         neg = torch.zeros((), dtype=torch.bool, device=rhs.device)
         it = 0
-        while it < self.cg_maxiter and bool(((torch.linalg.norm(r) > thresh) & ~neg).item()):
+        while it < self.cg_maxiter and bool(host_read((torch.linalg.norm(r) > thresh) & ~neg)):
             Sp = self._sc_matvec(fact, p)
             pSp = torch.dot(p, Sp)
             neg = neg | (pSp <= 0.0)

@@ -32,7 +32,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from parapint_tpu_torch.linalg.base import LinearSolver
 from parapint_tpu_torch.linalg.dense import DenseLDLSolver
@@ -48,6 +47,7 @@ from parapint_tpu_torch.ops.ldl import (
 from parapint_tpu_torch.ops.ordered_scatter import scatter_add_pairs, scatter_add_rows
 from parapint_tpu_torch.ops.winv_apply import winv_apply_fused, winv_apply_plain
 from parapint_tpu_torch.parallel.mesh import BlockAxis, all_reduce_max, all_reduce_sum
+from parapint_tpu_torch.utils.profile import host_read, span, spanned
 
 @dataclasses.dataclass(frozen=True)
 class BlockRhs:
@@ -672,6 +672,7 @@ class SchurComplementSolver(LinearSolver):
             )
         return LinearSolverResults(status=LinearSolverStatus.successful)
 
+    @spanned("sc_solver.numeric")
     def numeric(self, kkt) -> SchurFactor:
         self.n_numeric += 1
         whole = gather_kkt(kkt)
@@ -691,13 +692,13 @@ class SchurComplementSolver(LinearSolver):
         assembly = lk.assembly if local else "scatter"
         # phase labels: the reference solver's named scopes
         if self.explicit_inverse:
-            with record_function("sc_solver.factor_blocks"):
+            with span("sc_solver.factor_blocks"):
                 W, d, s, blk_inertia, blk_status = _factor_blocks_winv(
                     lk.diag, lk.mask, self.block_size, self.zero_tol, self.factor_dtype,
                     self.apply_dtype,
                 )
             LD = None
-            with record_function("sc_solver.form_sc"):
+            with span("sc_solver.form_sc"):
                 if tridiag:
                     dt_c, ut_full = _sc_tiles_local_winv(W, d, s, border, nc, lo)
                 elif local:
@@ -715,7 +716,7 @@ class SchurComplementSolver(LinearSolver):
                 W = W.to(self.w_store_dtype)
         else:
             W = d = s = W_hi = None
-            with record_function("sc_solver.factor_blocks"):
+            with span("sc_solver.factor_blocks"):
                 LD, blk_inertia, blk_status = _factor_blocks(
                     lk.diag, lk.mask, self.block_size, self.zero_tol
                 )
@@ -723,7 +724,7 @@ class SchurComplementSolver(LinearSolver):
                 # hybrid precision, LD form: pivots/inertia from the
                 # factor-dtype sweep, solves in apply_dtype (no equilibration)
                 LD = LD.to(self.apply_dtype)
-            with record_function("sc_solver.form_sc"):
+            with span("sc_solver.form_sc"):
                 if tridiag:
                     dt_c, ut_full = _sc_tiles_local(LD, border, nc, lo)
                 elif local:
@@ -731,14 +732,14 @@ class SchurComplementSolver(LinearSolver):
                 else:
                     contrib = _sc_contribution(LD, border, lk.mask)
             q = kkt.q
-        with record_function("sc_solver.communicate"):
+        with span("sc_solver.communicate"):
             if tridiag:
                 sc = _tile_sc(q, ns, dt_c, ut_full, self.group)
             else:
                 sc = q - all_reduce_sum(contrib, self.group)
             blk_inertia = all_reduce_sum(blk_inertia, self.group)
             blk_status = all_reduce_max(blk_status, self.group)
-        with record_function("sc_solver.factor_sc"):
+        with span("sc_solver.factor_sc"):
             sc_fact = self.sc_solver.numeric(sc)
         sc_pos, sc_neg, sc_zero = self.sc_solver.inertia(sc_fact)
         inertia = blk_inertia + torch.stack([sc_pos, sc_neg, sc_zero]).to(torch.int32)
@@ -777,7 +778,7 @@ class SchurComplementSolver(LinearSolver):
         self.n_solves += 1
         local = fact.border is None
         chain = _chain_border_ok(fact.assembly, fact.border_loc, fact.nc)
-        with record_function("sc_solver.block_solve"):
+        with span("sc_solver.block_solve"):
             v = self._apply_blocks(fact, rhs.blocks, hi)
             if chain:
                 contrib = _border_apply_chain(fact.border_loc, v, fact.nc, fact.group_offset)
@@ -787,11 +788,11 @@ class SchurComplementSolver(LinearSolver):
                 )
             else:
                 contrib = torch.einsum("bci,bi->c", fact.border.to(v.dtype), v)
-        with record_function("sc_solver.communicate"):
+        with span("sc_solver.communicate"):
             sc_rhs = rhs.coupling - all_reduce_sum(contrib, self.group)
-        with record_function("sc_solver.sc_back_solve"):
+        with span("sc_solver.sc_back_solve"):
             y = self.sc_solver.solve(fact.sc_fact, sc_rhs)
-        with record_function("sc_solver.back_solve"):
+        with span("sc_solver.back_solve"):
             if chain:
                 rhs2 = rhs.blocks - _border_T_apply_chain(fact.border_loc, y, fact.group_offset)
             elif local:
@@ -819,7 +820,7 @@ class SchurComplementSolver(LinearSolver):
             x = up(self._solve_once(fact, rhs, hi))
             need = _refine_probe(fact, rhs, x, self.refine_trigger, self.group)
             passes = 0
-            while passes < self.refine_max_passes and bool(need.item()):
+            while passes < self.refine_max_passes and bool(host_read(need)):
                 x = refine_pass(x, hi)
                 passes += 1
                 need = _refine_probe(fact, rhs, x, self.refine_trigger, self.group)
@@ -827,7 +828,7 @@ class SchurComplementSolver(LinearSolver):
 
         if self.adaptive_refine:
             x, need = solve_adaptive(False)
-            if fact.block_W_hi is not None and bool(need.item()):
+            if fact.block_W_hi is not None and bool(host_read(need)):
                 # bf16 auto-gate: a stall on the reduced-storage W retries
                 # the whole solve with the full-precision W
                 self.n_gate_fallbacks += 1

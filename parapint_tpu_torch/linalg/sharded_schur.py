@@ -29,7 +29,6 @@ probe's flag) is all-reduced, so every rank takes every branch the same way.
 
 from typing import Optional
 
-from torch.profiler import record_function
 
 from parapint_tpu_torch.linalg.schur import (
     BlockRhs,
@@ -39,6 +38,7 @@ from parapint_tpu_torch.linalg.schur import (
     shard_kkt,
 )
 from parapint_tpu_torch.parallel.mesh import BlockAxis
+from parapint_tpu_torch.utils.profile import span, spanned
 
 
 class ShardedSchurComplementSolver(SchurComplementSolver):
@@ -89,6 +89,7 @@ class ShardedSchurComplementSolver(SchurComplementSolver):
         self.group = self.axis.group
         self.n_shards = self.axis.size
 
+    @spanned("sc_solver.numeric")
     def numeric(self, kkt) -> SchurFactor:
         self.n_numeric += 1
         # any block count: masked identity blocks pad it to a multiple of
@@ -106,6 +107,6 @@ class ShardedSchurComplementSolver(SchurComplementSolver):
         n = fact.global_blocks if rank_local else rhs.blocks.shape[0]
         local = BlockRhs(self.axis.local_rows(rhs.blocks, nb, rank_local), rhs.coupling)
         x, ok = super()._solve_refined(fact, local)
-        with record_function("sc_solver.communicate"):
+        with span("sc_solver.communicate"):
             xb = self.axis.gather_blocks(x.blocks, nb)[:n]
         return BlockRhs(blocks=xb, coupling=x.coupling), ok

@@ -18,6 +18,7 @@ import torch
 from parapint_tpu_torch.linalg.base import LinearSolver
 from parapint_tpu_torch.linalg.results import LinearSolverResults, LinearSolverStatus
 from parapint_tpu_torch.linalg.schur import _factor_blocks_winv
+from parapint_tpu_torch.utils.profile import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +93,7 @@ def _winv_to_inverse(W, d, s, ns: int):
     return Minv * s[:, :, None] * s[:, None, :]
 
 
+@spanned("tridiag.numeric")
 def cr_factor(
     tri: BlockTridiag,
     block_size: int = 64,
@@ -121,33 +123,34 @@ def cr_factor(
     inertia = torch.zeros(3, dtype=torch.int32, device=dev)
     status = torch.zeros((), dtype=torch.int32, device=dev)
     while True:
-        K = (M - 1) // 2
-        W, d, s, lvl_inertia, lvl_status = _factor_blocks_winv(
-            diag[0::2], mask[0::2], block_size, zero_tol, factor_dtype
-        )
-        tinv = _winv_to_inverse(W, d, s, ns).to(dt)
-        inertia = inertia + lvl_inertia
-        status = torch.maximum(status, lvl_status)
-        tinvs.append(tinv)
-        if K == 0:
-            empty = diag.new_zeros((0, ns, ns))
-            ues.append(empty)
-            uos.append(empty)
-            break
-        Ue = upper[0::2]  # U_{2p}:   couples (2p,   2p+1)
-        Uo = upper[1::2]  # U_{2p+1}: couples (2p+1, 2p+2)
-        ues.append(Ue)
-        uos.append(Uo)
-        # kept tile p (global 2p+1) absorbs both eliminated neighbours:
-        #   T'_p = T_{2p+1} - Ue_p^T Tinv_{2p} Ue_p - Uo_p Tinv_{2p+2} Uo_p^T
-        tl = Ue.transpose(1, 2) @ tinv[:K] @ Ue
-        tr = Uo @ tinv[1:] @ Uo.transpose(1, 2)
-        diag = diag[1::2] - tl - tr
-        # new coupling between kept p and p+1 via eliminated 2p+2:
-        #   U'_p = -Uo_p Tinv_{2p+2} Ue_{p+1}
-        upper = -(Uo[: K - 1] @ tinv[1:K] @ Ue[1:])
-        mask = mask[1::2]
-        M = K
+        with span("tridiag.cr_level"):
+            K = (M - 1) // 2
+            W, d, s, lvl_inertia, lvl_status = _factor_blocks_winv(
+                diag[0::2], mask[0::2], block_size, zero_tol, factor_dtype
+            )
+            tinv = _winv_to_inverse(W, d, s, ns).to(dt)
+            inertia = inertia + lvl_inertia
+            status = torch.maximum(status, lvl_status)
+            tinvs.append(tinv)
+            if K == 0:
+                empty = diag.new_zeros((0, ns, ns))
+                ues.append(empty)
+                uos.append(empty)
+                break
+            Ue = upper[0::2]  # U_{2p}:   couples (2p,   2p+1)
+            Uo = upper[1::2]  # U_{2p+1}: couples (2p+1, 2p+2)
+            ues.append(Ue)
+            uos.append(Uo)
+            # kept tile p (global 2p+1) absorbs both eliminated neighbours:
+            #   T'_p = T_{2p+1} - Ue_p^T Tinv_{2p} Ue_p - Uo_p Tinv_{2p+2} Uo_p^T
+            tl = Ue.transpose(1, 2) @ tinv[:K] @ Ue
+            tr = Uo @ tinv[1:] @ Uo.transpose(1, 2)
+            diag = diag[1::2] - tl - tr
+            # new coupling between kept p and p+1 via eliminated 2p+2:
+            #   U'_p = -Uo_p Tinv_{2p+2} Ue_{p+1}
+            upper = -(Uo[: K - 1] @ tinv[1:K] @ Ue[1:])
+            mask = mask[1::2]
+            M = K
     return CRFactor(
         tinv=tuple(tinvs),
         ue=tuple(ues),

@@ -29,6 +29,7 @@ from parapint_tpu_torch.ops.ldl_panel import (
     ldl_panels_slab,
     ldl_panels_slab_winv,
 )
+from parapint_tpu_torch.utils.profile import host_sync
 
 _SUBST_BASE = 16
 
@@ -139,7 +140,8 @@ def _eye_pad(A: torch.Tensor, npad: int) -> torch.Tensor:
     Ap = A.new_zeros(A.shape[:-2] + (npad, npad))
     Ap[..., :n, :n] = A
     idx = torch.arange(n, npad, device=A.device)
-    Ap[..., idx, idx] = 1.0
+    with host_sync():  # the scalar 1.0 is copied from pageable host memory
+        Ap[..., idx, idx] = 1.0
     return Ap
 
 

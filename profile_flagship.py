@@ -40,6 +40,7 @@ from chip_smoke import (
     burgers_two_kinds,
 )
 from parapint_tpu_torch.tools.kernel_lab import card_line
+from parapint_tpu_torch.utils.profile import SPAN_PREFIXES
 
 
 def _timed(fn):
@@ -131,11 +132,11 @@ def profile_path(path):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pwall, _ = _timed(lambda: solve(s0))
     ka = prof.key_averages()
-    # the sc_solver.* labels also appear as device-side ranges; they are
+    # the program's spans also appear as device-side ranges; they are
     # spans, not kernels, and are kept out of the sums
     kernels = [
         e for e in ka
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("sc_solver.")
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith(SPAN_PREFIXES)
     ]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in ka if e.key in LAUNCH_CALLS)
