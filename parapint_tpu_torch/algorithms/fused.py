@@ -9,7 +9,8 @@ branch run in Python; each decision reads one device flag
 (``utils/profile.py::host_read``) and every iterate, residual and step stays
 on the device.  The loop's spans are ``ip.solve``, ``ip.iteration``,
 ``ip.inertia_correction`` and ``ip.line_search``; each interface call carries
-its own ``iface.*`` span.
+its own ``iface.*`` span.  Inside a solve the structured interfaces may
+replay their per-iteration AD calls as CUDA graphs (``interfaces/ad_graph.py``).
 
 Differences from the Python-loop ``ip_solve`` of the JAX package (as in its
 fused solve): no per-iteration log table, and a failure to factorize or to
@@ -26,6 +27,7 @@ from parapint_tpu_torch.algorithms.interior_point import (
     InteriorPointStatus,
     check_precision_compat,
 )
+from parapint_tpu_torch.interfaces import ad_graph
 from parapint_tpu_torch.linalg.results import LinearSolverStatus
 from parapint_tpu_torch.options import IPOptions
 from parapint_tpu_torch.utils.profile import host_read, host_sync, span
@@ -141,7 +143,7 @@ def make_fused_ip_solve(interface, options: Optional[IPOptions] = None):
         return torch.where((info.compl_count > 0) & (avg > 0.0), mu_adaptive, mu_monotone)
 
     def solve(state0) -> FusedResult:
-        with span("ip.solve"):
+        with span("ip.solve"), ad_graph.fused_solve_scope():
             return _solve(state0)
 
     def _solve(state0) -> FusedResult:
@@ -189,14 +191,17 @@ def make_fused_ip_solve(interface, options: Optional[IPOptions] = None):
                         break
                 state = interface.apply_step(state, deltas, a_p, a_d, alpha)
                 inertia_coef = max(ic.init_coef, used * ic.factor_decrease)
+        # the convergence numbers may alias a store of the AD calls' graphs,
+        # which the next solve overwrites
+        primal_inf, dual_inf, compl_inf = (d.clone() for d in diags)
         return FusedResult(
             state=state,
             status=status.value,
             iterations=it,
             barrier=mu,
-            primal_inf=diags[0],
-            dual_inf=diags[1],
-            compl_inf=diags[2],
+            primal_inf=primal_inf,
+            dual_inf=dual_inf,
+            compl_inf=compl_inf,
         )
 
     return solve

@@ -48,7 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from parapint_tpu_torch.interfaces import base
+from parapint_tpu_torch.interfaces import ad_graph, base
 from parapint_tpu_torch.interfaces.banded_symbolic import banded_plan, block_patterns
 from parapint_tpu_torch.interfaces.base import (
     STATE_FIELDS,
@@ -149,6 +149,7 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         ) = sub_kkt_layout(self.n, self.me, self.mi, self.n_link)
         self.obj_factor = 1.0
         self._current_state = None
+        self._ad_graphs = ad_graph.ADGraphs(self.device)
 
         # dense (N, n_link, n) link selectors, built once on the device
         if getattr(self, "link_sel", None) is not None:
@@ -562,6 +563,18 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         args = (cast(x), params, v.x_mask)
         return v.fns.jac_eq(*args, v.eq_mask), v.fns.jac_ineq(*args, v.ineq_mask)
 
+    def _graphed(self) -> bool:
+        """Whether the per-iteration AD calls replay CUDA graphs
+        (``ad_graph.py``): inside a fused solve, on a device with graph
+        capture, without a mesh (its gather runs collectives), in the banded
+        form (the dense form's stores would hold every block's Hessian)."""
+        return (
+            ad_graph.in_fused_solve()
+            and self.axis is None
+            and self.block_form == "banded"
+            and self.device.type in ad_graph.CAPTURE
+        )
+
     @spanned("iface.eval_ad")
     def eval_ad(self, state):
         """One AD sweep per iteration: every derivative quantity that both
@@ -572,8 +585,13 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
         mesh the contraction runs here, on the rank's Jacobians).  The
         objective, gradient, residuals and J^T y come out whole; the
         Jacobians and Hessian hold the rank's blocks."""
+        args = self._own_iterate(state)
+        if self._graphed():
+            return self._ad_graphs("eval_ad", self._eval_ad, args, self.obj_factor)
+        return self._eval_ad(*args)
+
+    def _eval_ad(self, x, yeq, yineq):
         v = self._view
-        x, yeq, yineq = self._own_iterate(state)
         args = (x, v.params, v.x_mask)
         f = v.fns.f(*args)
         grad_f = v.fns.grad_f(*args)
@@ -595,15 +613,26 @@ class StructuredSCInterface(base.BaseInteriorPointInterface):
 
     @spanned("iface.convergence_from_ad")
     def convergence_from_ad(self, state, ad, barrier, error_scaling):
+        args = (state, self.bounds, ad, barrier, error_scaling)
+        if self._graphed():
+            return self._ad_graphs(
+                "convergence_from_ad", self._convergence_from_ad, args, self.obj_factor
+            )
+        return self._convergence_from_ad(*args)
+
+    def _convergence_from_ad(self, state, bounds, ad, barrier, error_scaling):
         return self._convergence_core(
-            state, self.bounds, ad["obj"], ad["grad_f"], ad["jtlam"],
+            state, bounds, ad["obj"], ad["grad_f"], ad["jtlam"],
             ad["c_eq"], ad["c_ineq"], barrier, error_scaling,
             jac_eq=ad["jac_eq"], jac_ineq=ad["jac_ineq"],
         )
 
     @spanned("iface.kkt_from_ad")
     def kkt_from_ad(self, state, ad, barrier):
-        return self._kkt_core(state, self.bounds, ad, barrier)
+        args = (state, self.bounds, ad, barrier)
+        if self._graphed():
+            return self._ad_graphs("kkt_from_ad", self._kkt_core, args, self.obj_factor)
+        return self._kkt_core(*args)
 
     # -- convergence -------------------------------------------------------------
 

@@ -7,6 +7,9 @@ each batched AD closure, ``banded_sc.*``, ``sc_solver.*`` and ``tridiag.*`` in
 the linear solvers.  Every blocking read of a device value goes through
 :func:`host_read` (or, where a statement blocks otherwise, :func:`host_sync`),
 which counts ``host_syncs`` and times the wait as a span ``ip.host_sync``.
+The CUDA-graph replay of the AD calls (``interfaces/ad_graph.py``) counts
+each engaged call under :data:`AD_GRAPH`'s names, in total and per method
+(``ad_graph.replay.eval_ad``, ...), with :func:`count`.
 
 - Outside :func:`tracing` and any profiler, :func:`span` returns one shared
   no-op context: two flag reads, no allocation, no clock read.
@@ -44,6 +47,9 @@ TRACE_FILE = "trace.json"
 SOLVE = "ip.solve"  # a span that opens a new solve id
 SYNC = "ip.host_sync"  # the span of a blocking host read
 SYNCS = "host_syncs"  # its counter
+# the counters of the AD calls' CUDA graphs: a call captured, replayed, or run
+# eagerly though it engaged (``interfaces/ad_graph.py``)
+AD_GRAPH = ("ad_graph.capture", "ad_graph.replay", "ad_graph.eager")
 # the prefixes of every span name, one per layer
 SPAN_PREFIXES = ("ip.", "iface.", "ad.", "banded_sc.", "sc_solver.", "tridiag.")
 
@@ -172,6 +178,13 @@ def host_sync():
     if _record is None and not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Span(SYNC, count=True)
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` of the open :func:`tracing` record
+    (nothing outside one)."""
+    if _record is not None:
+        _record.counters[name] += 1
 
 
 def host_read(t: torch.Tensor):

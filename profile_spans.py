@@ -9,9 +9,12 @@ member, in an order drawn from ``--seed``) inside
 ``utils/profile.py::tracing``, with no profiler.  Prints the card's name
 and power limit, then one JSON line: per span name its calls, total and
 self seconds, the counters, the ten spans with the most self seconds a
-cycle, and the four readings a ``host_syncs_per_iter``,
+cycle, the four readings a ``host_syncs_per_iter``,
 ``sync_wait_ms_per_iter``, ``ad_kkt_host_ms_per_iter`` and
-``numeric_host_ms`` metric would take.  Every solve is judged by the plain
+``numeric_host_ms`` metric would take, the share of each AD method's
+calls that replayed a CUDA graph (``interfaces/ad_graph.py``), the graph
+counters of the warm-up (where the captures fall) and the card's reserved
+bytes after it.  Every solve is judged by the plain
 reference like the benchmark's; exits 1 where one fails the check.
 
 This is the benchmark's phase E run by hand until the benchmark takes the
@@ -28,6 +31,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+AD_METHODS = ("eval_ad", "convergence_from_ad", "kkt_from_ad")
 AD_KKT = ("iface.eval_ad", "iface.convergence_from_ad", "iface.kkt_from_ad", "iface.assemble_kkt")
 NUMERIC = ("banded_sc.numeric", "sc_solver.numeric")
 TOP = 10
@@ -47,17 +51,31 @@ def readings(rec, iterations: int) -> dict:
     }
 
 
+def replay_shares(rec) -> dict:
+    """Per AD method, the share of its engaged calls that replayed a graph
+    (None where none engaged)."""
+    from parapint_tpu_torch.utils import profile as P
+
+    out = {}
+    for m in AD_METHODS:
+        engaged = sum(rec.counters[f"{kind}.{m}"] for kind in P.AD_GRAPH)
+        out[m] = rec.counters[f"ad_graph.replay.{m}"] / engaged if engaged else None
+    return out
+
+
 def run(cell, seed: int, cycles: int, device) -> dict:
     """``cycles`` traced cycles of ``cell``'s fixed set; the result object."""
     import numpy as np
+    import torch
 
     from benchmark import harness
     from parapint_tpu_torch.utils import profile as P
 
     rng = np.random.default_rng(abs(seed))
     instances = harness.build_instances(cell, device)
-    for k, inst in enumerate(instances):
-        harness.solve_once(inst, k, device, keep_answer=False)
+    with P.tracing() as warm:
+        for k, inst in enumerate(instances):
+            harness.solve_once(inst, k, device, keep_answer=False)
 
     solves, seconds = [], 0.0
     with P.tracing() as rec:
@@ -74,6 +92,9 @@ def run(cell, seed: int, cycles: int, device) -> dict:
         "correct": verdict["failed"] == 0, "solves": len(solves), "checks": verdict["checks"],
         "iterations": iterations, "cycle_s": seconds / cycles,
         "readings": readings(rec, iterations), "counters": dict(rec.counters),
+        "ad_graph_replay_share": replay_shares(rec),
+        "warmup_ad_graph": {k: v for k, v in warm.counters.items() if k.startswith("ad_graph.")},
+        "reserved_bytes": torch.cuda.memory_reserved(device),
         "host_self_s": [[k, v] for k, v in host_self],
         "spans": {k: list(v) for k, v in sorted(summary.items())},
     }
