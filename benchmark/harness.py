@@ -7,11 +7,17 @@ Everything a cell needs is found by the names in ``BENCHMARK.json``:
 
 - the configuration: the ``file`` its entry names, whose ``model`` names
   ``models/<model>.py`` (the user's model code: ``instances(config)``,
-  ``drawn(config, seed)`` and ``build_spec(config, y0, device)``) and ``reference/<model>.py`` (the
-  plain reference: ``NLP(config, y0, dtype, device)`` with ``certificate``);
+  ``drawn(config, seed)``, ``build_interface(config, member, traffic,
+  device)``, ``member_params(member)`` and ``TINY``) and
+  ``reference/<model>.py`` (the plain reference: ``NLP(config, member,
+  dtype, device)`` with ``certificate(answer)``, and ``ANSWER``, the leaves
+  of the returned iterate that it judges);
 - the traffic mix: ``traffic/<traffic>.json``, read by :func:`make_solver`
   and :func:`closed_loop`;
 - each per-layer metric: ``metrics/<metric>.py`` (see ``metrics/__init__.py``).
+
+A member is opaque here: the model module makes it and the reference reads
+it, so nothing in this file knows one interface or model from another.
 """
 
 import dataclasses
@@ -107,13 +113,15 @@ def make_solver(traffic: dict, interface):
 
 @dataclasses.dataclass
 class Instance:
-    """One member of the configuration's set: its data and the program's
-    interface, solver and solve function built on it."""
+    """One member of the configuration's set: its data, the program's
+    interface, solver and solve function built on it, and the leaves of the
+    returned iterate that the reference judges (its ``ANSWER``)."""
 
     data: dict
     interface: object
     solver: object
     solve: object
+    answer: tuple
 
 
 def build_instance(cell: Cell, data: dict, device) -> Instance:
@@ -121,17 +129,15 @@ def build_instance(cell: Cell, data: dict, device) -> Instance:
     data, on ``device``, through the program's public API."""
     import parapint_tpu_torch as ptt
 
-    spec = model_module(cell.config).build_spec(cell.config, data["y0"], device)
-    iface = ptt.DynamicSchurComplementInteriorPointInterface(
-        spec, kkt_dtype=_dtype(cell.config["kkt_dtype"]), block_form=cell.traffic["block_form"],
-    )
+    iface = model_module(cell.config).build_interface(cell.config, data, cell.traffic, device)
     options = ptt.IPOptions()
     options.tol = cell.config["tol"]
     options.max_iter = cell.traffic["max_iter"]
     options.linalg.solver = make_solver(cell.traffic, iface)
     solve = ptt.make_fused_ip_solve(iface, options)
     iface.set_bounds_relaxation_factor(options.bounds_relaxation_factor)
-    return Instance(data=data, interface=iface, solver=options.linalg.solver, solve=solve)
+    return Instance(data=data, interface=iface, solver=options.linalg.solver, solve=solve,
+                    answer=reference_module(cell.config).ANSWER)
 
 
 def build_instances(cell: Cell, device) -> list:
@@ -166,12 +172,16 @@ def solve_once(inst: Instance, k: int, device, keep_answer: bool) -> Solve:
     dt = time.perf_counter() - t
     answer = None
     if keep_answer:
-        st = res.state
-        answer = {
-            "x": st.primals["blocks"].cpu(), "c": st.primals["coupling"].cpu(),
-            "y": st.duals_eq["own"].cpu(), "lam": st.duals_eq["link"].cpu(),
-        }
+        answer = {leaf: leaf_of(res.state, leaf).cpu() for leaf in inst.answer}
     return Solve(k, dt, int(res.iterations), int(res.status), answer)
+
+
+def leaf_of(state, leaf):
+    """The tensor that ``leaf``, a (field, key-or-None) pair of a reference's
+    ``ANSWER``, names in ``state``."""
+    field, key = leaf
+    value = getattr(state, field)
+    return value if key is None else value[key]
 
 
 def closed_loop(instances, rng, seconds: float, device):
@@ -225,13 +235,11 @@ def judge(cell: Cell, instances_data: list, solves: list) -> dict:
     import torch
 
     ref_mod = reference_module(cell.config)
-    refs = [ref_mod.NLP(cell.config, d["y0"], dtype=torch.float64, device="cpu")
-            for d in instances_data]
+    refs = [ref_mod.NLP(cell.config, d, dtype=torch.float64, device="cpu") for d in instances_data]
     tol = cell.config["tol"]
     worst, non_optimal, failed = 0.0, 0, 0
     for s in solves:
-        a = s.answer
-        cert = refs[s.member].certificate(a["x"], a["c"], a["y"], a["lam"])
+        cert = refs[s.member].certificate(s.answer)
         bad = s.status != 0 or not cert["kkt_error"] <= tol
         non_optimal += s.status != 0
         failed += bad
@@ -327,7 +335,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
         "iterations": {"min": min(iters), "median": statistics.median(iters), "max": max(iters),
                        "per_member": _per_member(solves)},
         "solve_seconds": times,
-        "drawn": {"height": data[-1]["height"], "edge": data[-1]["edge"],
+        "drawn": {**model_module(cell.config).member_params(data[-1]),
                   "iterations": drawn.iterations, "status": drawn.status},
         "setup_first_in_checkout": first_in_checkout(pycache_warm),
     }

@@ -15,10 +15,14 @@ Every size, index set and mask is that of the port's
 profile y0, which is also the initial condition: a member of the
 configuration's ``profile_family`` of step functions: a fixed set that every
 run times (:func:`instances`) and one member that a run's seed draws and
-solves once after the window (:func:`drawn`).
+solves once after the window (:func:`drawn`).  :func:`build_interface` hands
+a member to the port as a ``DynamicSchurComplementInteriorPointInterface``.
 """
 
 import numpy as np
+
+# the configuration's sizes cut to what a test process holds on the CPU
+TINY = dict(nfe_x=8, nfe_t=16, num_time_blocks=4)
 
 
 def step_profile(nfe_x: int, height: float, edge: float) -> np.ndarray:
@@ -55,6 +59,24 @@ def drawn(config: dict, seed: int) -> dict:
     if seed == 0:
         return _member(config, dict(fam["first"]))
     return _member(config, _draw(fam, np.random.default_rng([abs(int(seed)), 1])))
+
+
+def member_params(member: dict) -> dict:
+    """The numbers that name a member in the result line."""
+    return {"height": member["height"], "edge": member["edge"]}
+
+
+def build_interface(config: dict, member: dict, traffic: dict, device):
+    """The port's dynamic interface over ``member``'s profile, in the
+    configuration's KKT precision and the traffic's block form."""
+    import torch
+
+    import parapint_tpu_torch as ptt
+
+    spec = build_spec(config, member["y0"], device)
+    return ptt.DynamicSchurComplementInteriorPointInterface(
+        spec, kkt_dtype=getattr(torch, config["kkt_dtype"]), block_form=traffic["block_form"],
+    )
 
 
 def build_spec(config: dict, y0: np.ndarray, device):

@@ -20,12 +20,16 @@ import torch
 # IPOPT's scaling of the dual infeasibility: s_d = max(s_max, mean |dual|) / s_max
 S_MAX = 100.0
 
+# the leaves of the program's returned iterate that the certificate judges,
+# as (field, key) pairs, in the order of :meth:`BurgersNLP.kkt`'s arguments
+ANSWER = (("primals", "blocks"), ("primals", "coupling"), ("duals_eq", "own"), ("duals_eq", "link"))
+
 
 class BurgersNLP:
-    """The NLP of ``config``'s sizes with tracking profile ``y0``, evaluated in
-    ``dtype`` on ``device``."""
+    """The NLP of ``config``'s sizes with the tracking profile of ``member``
+    (its ``y0``), evaluated in ``dtype`` on ``device``."""
 
-    def __init__(self, config: dict, y0, dtype=torch.float64, device="cpu"):
+    def __init__(self, config: dict, member: dict, dtype=torch.float64, device="cpu"):
         self.dtype, self.device = dtype, torch.device(device)
         N = self.N = config["num_time_blocks"]
         nx = self.nx = config["nfe_x"]
@@ -39,7 +43,7 @@ class BurgersNLP:
         self.ns = nx - 1
         self.ncv = (N - 1) * self.ns
         t = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt, device=self.device)
-        self.y0 = t(y0)
+        self.y0 = t(member["y0"])
         wx = np.full(npts, self.dx)
         wx[0] = wx[-1] = 0.5 * self.dx
         wt = np.full(nt + 1, self.dt)
@@ -183,7 +187,11 @@ class BurgersNLP:
 
     # -- the certificate -----------------------------------------------------------
 
-    def certificate(self, x, c, y, lam):
+    def certificate(self, answer: dict):
+        """:meth:`kkt` of an answer: a dict of the ``ANSWER`` leaves."""
+        return self.kkt(*(answer[leaf] for leaf in ANSWER))
+
+    def kkt(self, x, c, y, lam):
         """The optimality numbers of an answer (x (N, n), c (ncv,), y (N, m),
         lam (N, 2 ns) = [backward, forward]), in this object's dtype:
         primal_inf (max |g|, |link|), dual_inf (max |grad L|), the dual scaling
@@ -223,7 +231,7 @@ class BurgersNLP:
         lam = torch.zeros((N, 2 * ns), dtype=self.dtype, device=self.device)
         best, since, it = None, 0, 0
         while True:
-            cert = self.certificate(x, c, y, lam)
+            cert = self.kkt(x, c, y, lam)
             if best is None or cert["kkt_error"] < best["cert"]["kkt_error"]:
                 best, since = {"x": x, "c": c, "y": y, "lam": lam, "cert": cert, "iterations": it}, 0
             else:

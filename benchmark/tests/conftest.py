@@ -1,5 +1,6 @@
 """Fixtures of the benchmark's tests: tiny cells on the CPU."""
 
+import json
 import sys
 from pathlib import Path
 
@@ -9,23 +10,27 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-# the configuration's sizes cut to what a test process holds on the CPU
-TINY = dict(nfe_x=8, nfe_t=16, num_time_blocks=4)
-
 
 @pytest.fixture
-def tiny_cell():
+def tiny_cell(monkeypatch):
     """``tiny_cell(workload, mix=None, **traffic)``: the cell of
-    BENCHMARK.json at TINY sizes; ``mix`` swaps in another mix of
-    ``traffic/`` (the dense one waits for its cell), ``traffic`` overrides
-    its keys."""
-    import json
-
+    BENCHMARK.json, or the stochastic fixture's cell (``fixture.CELL``,
+    with the harness pointed at its modules), at the sizes of its model's
+    ``TINY``; ``mix`` swaps in another mix of ``traffic/`` (the dense one
+    waits for its cell), ``traffic`` overrides its keys."""
     from benchmark import harness
+    from benchmark.tests import fixture
 
     def make(workload="burgers_256blocks.banded_cr", mix=None, **traffic):
-        cell = harness.load_cell(workload)
-        cell.config.update(TINY)
+        if workload == fixture.CELL:
+            monkeypatch.setattr(harness, "model_module", fixture.model_module)
+            monkeypatch.setattr(harness, "reference_module", fixture.reference_module)
+            spec = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
+            cell = harness.Cell(name=workload, chips=1, config=fixture.config(), traffic=fixture.traffic(),
+                                end_to_end=spec["end_to_end"], per_layer=spec["per_layer"])
+        else:
+            cell = harness.load_cell(workload)
+        cell.config.update(harness.model_module(cell.config).TINY)
         if mix is not None:
             cell.traffic = json.loads((harness.BENCH_DIR / "traffic" / f"{mix}.json").read_text())
         cell.traffic.update(traffic)

@@ -20,7 +20,7 @@ CPU = torch.device("cpu")
 def test_cell_files_found_by_name(workload):
     cell = harness.load_cell(workload)
     assert cell.config["name"] == SPEC["workloads"][CELLS.index(workload)]["config"]
-    assert callable(harness.model_module(cell.config).build_spec)
+    assert callable(harness.model_module(cell.config).build_interface)
     assert callable(harness.reference_module(cell.config).NLP)
     readers = trace.load_readers(cell.per_layer)
     assert readers and all(callable(r.read) for r in readers.values())
@@ -49,6 +49,18 @@ def test_untraced_run(tiny_cell, workload):
     assert set(r["metrics"]) == {m["name"] for m in SPEC["end_to_end"]}
     assert list(r)[-1] == "checks"
     assert r["checks"]["kkt_error_max"]["value"] <= r["checks"]["kkt_error_max"]["limit"]
+
+
+def test_burgers_tiny_run_reads_as_before(tiny_cell):
+    """The Burgers cell at TINY: its iterations per member, the drawn
+    member's keys and the result line's keys, as the harness read them
+    before the model's code left it."""
+    r = harness.run(tiny_cell(), 2**31 + 11, 0.0, False, CPU, time.perf_counter())
+    assert r["iterations"]["per_member"] == {"0": [6], "1": [6], "2": [5], "3": [6]}
+    assert list(r["drawn"]) == ["height", "edge", "iterations", "status"]
+    assert (r["drawn"]["iterations"], r["drawn"]["status"]) == (5, 0)
+    assert list(r) == ["correct", "attempted", "failed", "metrics", "device", "power_limit", "window_s",
+                       "iterations", "solve_seconds", "drawn", "setup_first_in_checkout", "checks"]
 
 
 def test_traced_run(tiny_cell):

@@ -1,6 +1,7 @@
 """What the benchmark's files may import and read."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -38,9 +39,25 @@ def test_no_root_bench_scripts_read(path):
     assert not {"chip_smoke", "bench", "bench_all", "profile_flagship"} & top_level_imports(path)
 
 
-@pytest.mark.parametrize("path", sorted((BENCH / "reference").glob("*.py")), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((BENCH / "reference").glob("*.py"))
+                         + sorted((BENCH / "tests" / "fixture" / "reference").glob("*.py")),
+                         ids=lambda p: p.name)
 def test_reference_imports_nothing_of_the_program(path):
     assert not top_level_imports(path) & (FORBIDDEN | {"parapint_tpu_torch", "benchmark"})
+
+
+@pytest.mark.parametrize("name", ["harness.py", "trace.py"])
+def test_harness_names_no_interface_nor_member_key(name):
+    """What is particular to a model sits in its own modules: the harness
+    and the trace name no interface or model class of the program and no
+    member key of any model."""
+    import parapint_tpu_torch as ptt
+
+    text = (BENCH / name).read_text()
+    classes = [c for c in ptt.__all__ if c.endswith(("Interface", "ModelSpec", "KindSpec"))]
+    assert "DynamicSchurComplementInteriorPointInterface" in classes
+    assert [c for c in classes if c in text] == []
+    assert re.findall(r"\b(y0|height|edge)\b", text) == []
 
 
 def test_jax_check_compares_whole_top_level_names(monkeypatch):

@@ -1,33 +1,115 @@
-"""The plain reference against the program at a tiny size on the CPU, its
-control (the reference in float32, below the configuration's float64) at
-a tiny size here and at the cells' own sizes on the card."""
+"""Every configuration's modules keep the contract of ``harness.py``
+(``benchmark/README.md``), and the certificate agrees with the program's
+own convergence numbers; then the Burgers reference against the program at
+a tiny size on the CPU, and its control (the reference in float32, below
+the configuration's float64) at a tiny size here and at the cells' own
+sizes on the card."""
 
 import json
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from benchmark import harness
-from benchmark.reference.burgers import NLP
+from benchmark.models import burgers as burgers_model
+from benchmark.reference.burgers import ANSWER, NLP
+from benchmark.tests import fixture
 
+SPEC = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
 CONFIGS = sorted((harness.BENCH_DIR / "configs").glob("*.json"))
+# one cell of each configuration of BENCHMARK.json, and the stochastic fixture's
+CELLS = [next(w["name"] for w in SPEC["workloads"] if w["config"] == c["name"]) for c in SPEC["configs"]]
+CELLS.append(fixture.CELL)
+BURGERS = [p for p in CONFIGS if json.loads(p.read_text())["model"] == "burgers"]
+BURGERS_CELLS = [w["name"] for w in SPEC["workloads"]
+                 if any(w["config"] == p.stem for p in BURGERS)]
+CPU = torch.device("cpu")
+SEEDS = [1, 2, 2**31 + 7, 4_000_000_001, -5]
 
 
-def _tiny(conftest_sizes=dict(nfe_x=8, nfe_t=16, num_time_blocks=4)):
-    cfg = json.loads(CONFIGS[0].read_text())
-    cfg.update(conftest_sizes)
+def _same(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _json_numbers(params: dict) -> bool:
+    return params and all(isinstance(v, (int, float)) and not isinstance(v, bool) and math.isfinite(v)
+                          for v in params.values())
+
+
+# -- the contract, for every configuration -------------------------------------------
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_modules_keep_the_contract(tiny_cell, workload):
+    from parapint_tpu_torch.interfaces.base import STATE_FIELDS
+
+    cell = tiny_cell(workload)
+    model, ref = harness.model_module(cell.config), harness.reference_module(cell.config)
+    for name in ("instances", "drawn", "build_interface", "member_params"):
+        assert callable(getattr(model, name)), name
+    assert isinstance(model.TINY, dict) and set(model.TINY) <= set(cell.config)
+    assert callable(ref.NLP) and callable(ref.NLP.certificate)
+    assert ref.ANSWER and len(set(ref.ANSWER)) == len(ref.ANSWER)
+    assert all(field in STATE_FIELDS for field, _ in ref.ANSWER)
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_instances_are_fixed_and_named_by_numbers(tiny_cell, workload):
+    cfg = tiny_cell(workload).config
+    model = harness.model_module(cfg)
+    a, b = model.instances(cfg), model.instances(cfg)
+    assert a and len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    params = [model.member_params(m) for m in a]
+    assert all(_json_numbers(p) for p in params)
+    assert json.loads(json.dumps(params)) == params
+    assert len({tuple(sorted(p.items())) for p in params}) == len(a)
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_seed_draws_a_member_named_by_numbers(tiny_cell, workload):
+    cfg = tiny_cell(workload).config
+    model = harness.model_module(cfg)
+    a = [model.drawn(cfg, s) for s in SEEDS]
+    assert all(_same(x, model.drawn(cfg, s)) for x, s in zip(a, SEEDS))
+    params = [model.member_params(m) for m in a]
+    assert all(_json_numbers(p) for p in params)
+    assert len({tuple(sorted(p.items())) for p in params}) == len(SEEDS)
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_certificate_agrees_with_the_program(tiny_cell, workload):
+    cell = tiny_cell(workload)
+    inst = harness.build_instances(cell, CPU)[-1]
+    res = inst.solve(inst.interface.init_state())
+    assert res.status == 0
+    answer = {leaf: harness.leaf_of(res.state, leaf) for leaf in inst.answer}
+    cert = harness.reference_module(cell.config).NLP(cell.config, inst.data).certificate(answer)
+    # the program stops on max(primal, scaled dual, scaled complementarity),
+    # which the certificate computes alike in float64
+    program = max(float(res.primal_inf), float(res.dual_inf), float(res.compl_inf))
+    assert cert["kkt_error"] == pytest.approx(program, rel=1e-6, abs=1e-16)
+    assert cert["kkt_error"] <= cell.config["tol"]
+
+
+# -- Burgers --------------------------------------------------------------------------
+
+
+def _tiny(path):
+    cfg = json.loads(path.read_text())
+    cfg.update(burgers_model.TINY)
     return cfg
 
 
-def test_member_zero_is_the_reference_profile():
-    from benchmark.models import burgers as model
+@pytest.mark.parametrize("path", BURGERS, ids=lambda p: p.stem)
+def test_member_zero_is_the_reference_profile(path):
     from parapint_tpu_torch.examples import burgers as example
 
-    cfg = _tiny()
-    first = model.instances(cfg)[0]
-    ours = model.build_spec(cfg, first["y0"], "cpu")
-    theirs = example.build_spec(nfe_x=8, nfe_t=16, num_time_blocks=4, device="cpu")
+    cfg = _tiny(path)
+    first = burgers_model.instances(cfg)[0]
+    ours = burgers_model.build_spec(cfg, first["y0"], "cpu")
+    theirs = example.build_spec(**burgers_model.TINY, device="cpu")
     assert torch.equal(ours.x0, theirs.x0)
     assert (ours.eq_mask == theirs.eq_mask).all()
     assert (ours.start_state_idx == theirs.start_state_idx).all()
@@ -36,38 +118,39 @@ def test_member_zero_is_the_reference_profile():
     assert torch.equal(ours.objective(x, {}), theirs.objective(x, {}))
 
 
-def test_instances_are_fixed_and_distinct():
-    from benchmark.models import burgers as model
-
-    a, b = model.instances(_tiny()), model.instances(_tiny())
+@pytest.mark.parametrize("path", BURGERS, ids=lambda p: p.stem)
+def test_instances_are_fixed_and_distinct(path):
+    a, b = burgers_model.instances(_tiny(path)), burgers_model.instances(_tiny(path))
     assert len(a) == 4
     assert all(np.array_equal(x["y0"], y["y0"]) for x, y in zip(a, b))
     assert len({(m["height"], m["edge"]) for m in a}) == 4
 
 
-def test_seed_draws_one_member_of_the_family():
-    from benchmark.models import burgers as model
-
-    cfg, fam = _tiny(), _tiny()["profile_family"]
-    assert np.array_equal(model.drawn(cfg, 0)["y0"], model.instances(cfg)[0]["y0"])
-    seeds = [1, 2, 2**31 + 7, 4_000_000_001, -5]
-    a = [model.drawn(cfg, s) for s in seeds]
-    assert all(np.array_equal(x["y0"], model.drawn(cfg, s)["y0"]) for x, s in zip(a, seeds))
-    assert len({(m["height"], m["edge"]) for m in a}) == len(seeds)
+@pytest.mark.parametrize("path", BURGERS, ids=lambda p: p.stem)
+def test_seed_draws_one_member_of_the_family(path):
+    cfg = _tiny(path)
+    fam = cfg["profile_family"]
+    assert np.array_equal(burgers_model.drawn(cfg, 0)["y0"], burgers_model.instances(cfg)[0]["y0"])
+    a = [burgers_model.drawn(cfg, s) for s in SEEDS]
+    assert all(np.array_equal(x["y0"], burgers_model.drawn(cfg, s)["y0"]) for x, s in zip(a, SEEDS))
+    assert len({(m["height"], m["edge"]) for m in a}) == len(SEEDS)
     for m in a:
         assert fam["height"][0] <= m["height"] <= fam["height"][1]
         assert fam["edge"][0] <= m["edge"] <= fam["edge"][1]
+        assert burgers_model.member_params(m) == {"height": m["height"], "edge": m["edge"]}
 
 
+@pytest.mark.parametrize("workload", BURGERS_CELLS)
 @pytest.mark.parametrize("block_form", ["dense", "banded"])
-def test_certificate_and_solution_agree_with_the_program(tiny_cell, block_form):
-    cell = tiny_cell(mix="dense_cr" if block_form == "dense" else None)
-    inst = harness.build_instances(cell, torch.device("cpu"))[1]
+def test_certificate_and_solution_agree_with_the_program(tiny_cell, workload, block_form):
+    cell = tiny_cell(workload, mix="dense_cr" if block_form == "dense" else None)
+    inst = harness.build_instances(cell, CPU)[1]
     res = inst.solve(inst.interface.init_state())
     assert res.status == 0
     st = res.state
-    ref = NLP(cell.config, inst.data["y0"])
-    cert = ref.certificate(st.primals["blocks"], st.primals["coupling"], st.duals_eq["own"],
+    ref = NLP(cell.config, inst.data)
+    cert = ref.certificate({leaf: harness.leaf_of(st, leaf) for leaf in ANSWER})
+    assert cert == ref.kkt(st.primals["blocks"], st.primals["coupling"], st.duals_eq["own"],
                            st.duals_eq["link"])
     # the program's own convergence numbers, computed alike in float64
     assert cert["primal_inf"] == pytest.approx(float(res.primal_inf), rel=1e-6, abs=1e-16)
@@ -79,37 +162,37 @@ def test_certificate_and_solution_agree_with_the_program(tiny_cell, block_form):
     assert cert["objective"] == pytest.approx(own["cert"]["objective"], rel=1e-9)
 
 
-def test_control_fails_at_a_tiny_size():
-    cfg = _tiny()
-    for m in __import__("benchmark.models.burgers", fromlist=["x"]).instances(cfg):
-        judge = NLP(cfg, m["y0"])
+@pytest.mark.parametrize("path", BURGERS, ids=lambda p: p.stem)
+def test_control_fails_at_a_tiny_size(path):
+    cfg = _tiny(path)
+    for m in burgers_model.instances(cfg):
+        judge = NLP(cfg, m)
         ok = judge.solve(cfg["tol"])
         assert ok["status"] == "optimal" and ok["cert"]["kkt_error"] <= cfg["tol"]
-        c = NLP(cfg, m["y0"], dtype=torch.float32).solve(cfg["tol"])
-        reading = judge.certificate(c["x"], c["c"], c["y"], c["lam"])["kkt_error"]
+        c = NLP(cfg, m, dtype=torch.float32).solve(cfg["tol"])
+        reading = judge.kkt(c["x"], c["c"], c["y"], c["lam"])["kkt_error"]
         assert c["status"] == "error" and reading > 10 * cfg["tol"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
+@pytest.mark.parametrize("path", BURGERS, ids=lambda p: p.stem)
 def test_control_fails_at_full_size(path):
     """On the card: the float32 reference, judged in float64 on the host,
     misses the configuration's tol on every member of the fixed set and on
     the members three seeds draw; the float64 one meets it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from benchmark.models import burgers as model
-
     cfg = json.loads(path.read_text())
-    members = model.instances(cfg) + [model.drawn(cfg, s) for s in (2**31 + 1, 2**31 + 2, 2**31 + 3)]
+    members = burgers_model.instances(cfg) + [burgers_model.drawn(cfg, s)
+                                              for s in (2**31 + 1, 2**31 + 2, 2**31 + 3)]
     for k, m in enumerate(members):
-        judge = NLP(cfg, m["y0"])
+        judge = NLP(cfg, m)
         readings = {}
         for dtype in (torch.float64, torch.float32):
-            sol = NLP(cfg, m["y0"], dtype=dtype, device="cuda").solve(cfg["tol"])
+            sol = NLP(cfg, m, dtype=dtype, device="cuda").solve(cfg["tol"])
             readings[str(dtype)] = (sol["status"], sol["iterations"],
-                                    judge.certificate(sol["x"].cpu(), sol["c"].cpu(), sol["y"].cpu(),
-                                                      sol["lam"].cpu())["kkt_error"])
+                                    judge.kkt(sol["x"].cpu(), sol["c"].cpu(), sol["y"].cpu(),
+                                              sol["lam"].cpu())["kkt_error"])
             del sol
             torch.cuda.empty_cache()
         print(f"control {cfg['name']} member {k}: {readings}", flush=True)
